@@ -1,0 +1,60 @@
+"""The cv2-free renderer (tests/torch_synth.py) held against tests/synth.py.
+
+Tolerance: 0.05 gray out of 255 on every pixel. Both renderers warp the
+same float32 textures through the same homographies; they differ only in
+how cv2 rounds its float interpolation (~0.02 gray seen) and in the last
+bits of the 3x3 texture blur (3e-5). Plane masks must agree exactly, so no
+pixel changes plane.
+"""
+
+import numpy as np
+import pytest
+
+import synth
+import torch_synth
+
+
+@pytest.fixture(scope="module")
+def worlds():
+    return synth.PlaneWorld(seed=0), torch_synth.PlaneWorld(seed=0)
+
+
+def test_textures_match(worlds):
+    wj, wt = worlds
+    for pj, pt in zip(wj.planes, wt.planes):
+        assert pj[0] == pt[0] and pj[1] == pt[1]
+        np.testing.assert_allclose(pt[2], pj[2], atol=1e-4)
+        np.testing.assert_array_equal(pt[3], pj[3])
+
+
+def test_camera_path_matches():
+    np.testing.assert_allclose(torch_synth.camera_path(40), synth.camera_path(40), atol=1e-6)
+    np.testing.assert_allclose(torch_synth.camera_path(9, "forward"),
+                               synth.camera_path(9, "forward"), atol=1e-6)
+
+
+@pytest.mark.parametrize("frame", [0, 21, 39])
+def test_render_full_size(worlds, frame):
+    wj, wt = worlds
+    pose = synth.camera_path(40)[frame]
+    np.testing.assert_allclose(wt.render(pose), wj.render(pose), atol=0.05)
+
+
+def test_render_half_size(worlds):
+    wj, wt = worlds
+    K2 = synth.K.copy()
+    K2[:2] /= 2
+    pose = synth.camera_path(10)[4]
+    np.testing.assert_allclose(wt.render(pose, K_mat=K2, size=(320, 240)),
+                               wj.render(pose, K_mat=K2, size=(320, 240)), atol=0.05)
+
+
+def test_ate_matches_synth():
+    gt = synth.camera_path(30)
+    rng = np.random.default_rng(0)
+    est = gt.copy()
+    est[:, 4:] = 1.7 * (est[:, 4:] + rng.normal(0, 0.01, (30, 3)))
+    ts = np.arange(0, 30, 2)
+    # float64 numpy vs float32 JAX alignment
+    np.testing.assert_allclose(torch_synth.ate_rmse(ts, est[ts], gt),
+                               synth.ate_rmse(ts, est[ts], gt), rtol=1e-4)

@@ -1,0 +1,202 @@
+"""cv2-free and jax-free twin of tests/synth.py for the PyTorch port.
+
+Renders the same textured plane world along the same camera paths, in
+numpy only, so that `chip_smoke.py` can drive the port on a machine that has
+neither jax nor cv2. The textures come from the same numpy RNG calls as
+synth.make_texture. The warps follow cv2.warpPerspective: the inverse
+map of each destination pixel, bilinear (INTER_LINEAR) or rounded to the
+nearest pixel (INTER_NEAREST), zero outside the texture.
+tests/test_torch_synth.py holds the two renderers against each other.
+
+Also: `ate_rmse`, the Sim3-aligned ATE of synth.ate_rmse (Horn alignment),
+in numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from textslam_tpu_torch.geometry import se3_np
+
+FX, FY, CX, CY = 420.0, 420.0, 320.0, 240.0
+W, H = 640, 480
+K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1.0]])
+
+def _gauss3_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """cv2.GaussianBlur(img, (3, 3), sigma) on float32: separable 3-tap
+    kernel (computed in float64, stored as float32), BORDER_REFLECT_101."""
+    x = np.arange(-1, 2, dtype=np.float64)
+    k = np.exp(-(x * x) / (2 * sigma * sigma))
+    k = (k / k.sum()).astype(np.float32)
+    p = np.pad(img, 1, mode="reflect")
+    rows = p[:, 1:-1] * k[1] + (p[:, :-2] + p[:, 2:]) * k[0]
+    return (rows[1:-1] * k[1] + (rows[:-2] + rows[2:]) * k[0]).astype(np.float32)
+
+
+def make_texture(rng, size=1024, blobs=4000):
+    """High-frequency matte texture with corners at many scales
+    (the RNG call sequence of synth.make_texture)."""
+    tex = np.full((size, size), 128.0, np.float32)
+    xs = rng.integers(6, size - 6, blobs)
+    ys = rng.integers(6, size - 6, blobs)
+    for x, y in zip(xs, ys):
+        w = int(rng.integers(3, 14))
+        h = int(rng.integers(3, 14))
+        val = float(rng.uniform(0, 255))
+        tex[y : y + h, x : x + w] = val
+    return _gauss3_blur(tex, 0.8)
+
+
+def _source_coords(Hm: np.ndarray, Wc: int, Hc: int):
+    """Inverse-mapped source coordinates (X, Y, Wh) of every destination
+    pixel, in float64, as cv2.warpPerspective forms them."""
+    M = np.linalg.inv(Hm)
+    xs = np.arange(Wc, dtype=np.float64)[None, :]
+    ys = np.arange(Hc, dtype=np.float64)[:, None]
+    X = M[0, 1] * ys + M[0, 2] + M[0, 0] * xs
+    Y = M[1, 1] * ys + M[1, 2] + M[1, 0] * xs
+    Wh = M[2, 1] * ys + M[2, 2] + M[2, 0] * xs
+    return X, Y, Wh
+
+
+def warp_linear(src: np.ndarray, Hm: np.ndarray, Wc: int, Hc: int) -> np.ndarray:
+    """cv2.warpPerspective(src, Hm, (Wc, Hc), flags=INTER_LINEAR): bilinear
+    at the exact inverse-mapped coordinates, zero outside the source."""
+    X, Y, Wh = _source_coords(Hm, Wc, Hc)
+    Wh = np.where(Wh != 0, Wh, np.inf)
+    x, y = X / Wh, Y / Wh
+    x0, y0 = np.floor(x), np.floor(y)
+    fx, fy = (x - x0).astype(np.float32), (y - y0).astype(np.float32)
+    x0, y0 = x0.clip(-2, 1 << 30).astype(np.int64), y0.clip(-2, 1 << 30).astype(np.int64)
+    h, w = src.shape
+    out = np.zeros((Hc, Wc), np.float32)
+    for dy, wy in ((0, 1 - fy), (1, fy)):
+        for dx, wx in ((0, 1 - fx), (1, fx)):
+            xx, yy = x0 + dx, y0 + dy
+            inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+            v = np.where(inside, src[yy.clip(0, h - 1), xx.clip(0, w - 1)], np.float32(0))
+            out += v * (wy * wx)
+    return out
+
+
+def warp_nearest(src: np.ndarray, Hm: np.ndarray, Wc: int, Hc: int) -> np.ndarray:
+    """cv2.warpPerspective(src, Hm, (Wc, Hc), flags=INTER_NEAREST)."""
+    X, Y, Wh = _source_coords(Hm, Wc, Hc)
+    Wh = np.where(Wh != 0, Wh, np.inf)
+    xi = np.rint(X / Wh).clip(-1, 1 << 30).astype(np.int64)
+    yi = np.rint(Y / Wh).clip(-1, 1 << 30).astype(np.int64)
+    h, w = src.shape
+    inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    return np.where(inside, src[yi.clip(0, h - 1), xi.clip(0, w - 1)], np.float32(0))
+
+
+class PlaneWorld:
+    """Textured planes z = const in world coordinates (synth.PlaneWorld)."""
+
+    def __init__(self, seed=0, planes=None):
+        rng = np.random.default_rng(seed)
+        if planes is None:
+            planes = [
+                (7.0, 12.0, None),
+                (4.0, 8.0, (260, 760, 200, 640)),
+                (2.8, 6.0, (120, 420, 560, 980)),
+                (5.0, 9.0, (600, 950, 80, 560)),
+            ]
+        self.planes = []  # (Z0, scale px/m, texture, mask, (x_off, y_off))
+        for spec in planes:
+            z0, scale, region = spec[:3]
+            off = np.asarray(spec[3], np.float64) if len(spec) > 3 else np.zeros(2)
+            tex = make_texture(rng)
+            if region is None:
+                mask = np.ones_like(tex)
+            else:
+                mask = np.zeros_like(tex)
+                y0, y1, x0, x1 = region
+                mask[y0:y1, x0:x1] = 1.0
+            self.planes.append((z0, scale * 40.0, tex, mask, off))
+
+    def render(self, pose_cw: np.ndarray, K_mat=None, size=None) -> np.ndarray:
+        """Render the world for camera pose Tcw [7] (wxyz + t)."""
+        Km = K if K_mat is None else K_mat
+        Wc, Hc = (W, H) if size is None else size
+        q, t = pose_cw[:4], pose_cw[4:]
+        R = se3_np.qto_matrix(np.asarray(q, np.float32))
+        img = np.zeros((Hc, Wc), np.float32)
+        for z0, s, tex, mask, off in sorted(self.planes, key=lambda p: -p[0]):
+            th, tw = tex.shape
+            r1, r2, r3 = R[:, 0], R[:, 1], R[:, 2]
+            col3 = (r3 * z0 + t + r1 * (off[0] - tw / (2 * s))
+                    + r2 * (off[1] - th / (2 * s)))
+            Hm = Km @ np.stack([r1 / s, r2 / s, col3], axis=1)
+            warped = warp_linear(tex, Hm, Wc, Hc)
+            wmask = warp_nearest(mask, Hm, Wc, Hc)
+            img = np.where(wmask > 0, warped, img)
+        return img
+
+
+def _qexp(w: np.ndarray) -> np.ndarray:
+    w = np.asarray(w, np.float32)
+    sq = np.float32((w * w).sum())
+    if sq < 1e-12:
+        return np.concatenate([[1.0 - sq / 8.0], (0.5 - sq / 48.0) * w]).astype(np.float32)
+    th = np.sqrt(sq)
+    return np.concatenate([[np.cos(0.5 * th)], np.sin(0.5 * th) / th * w]).astype(np.float32)
+
+
+def camera_path(n_frames: int, kind="lateral"):
+    """Ground-truth Tcw poses [N, 7] (the `lateral` and `forward` paths of
+    synth.camera_path)."""
+    poses = []
+    for i in range(n_frames):
+        s = i / max(n_frames - 1, 1)
+        if kind == "lateral":
+            t_wc = np.array([1.2 * s, 0.15 * np.sin(2 * np.pi * s), 0.3 * s])
+            w = np.array([0.0, -0.25 * s, 0.02 * np.sin(2 * np.pi * s)])
+        elif kind == "forward":
+            t_wc = np.array([0.2 * s, 0.0, 1.5 * s])
+            w = np.array([0.0, 0.05 * s, 0.0])
+        else:
+            raise ValueError(kind)
+        Twc = np.concatenate([_qexp(w), t_wc]).astype(np.float32)
+        poses.append(se3_np.inverse(Twc).astype(np.float32))
+    return np.stack(poses)
+
+
+def render_sequence(n_frames=40, seed=0, kind="lateral", K_mat=None, size=None):
+    world = PlaneWorld(seed=seed)
+    poses = camera_path(n_frames, kind)
+    frames = [world.render(p, K_mat=K_mat, size=size) for p in poses]
+    return frames, poses
+
+
+def _horn_alignment(P1: np.ndarray, P2: np.ndarray) -> tuple:
+    """(s, R, t) minimizing ||P1 - (s R P2 + t)|| — the construction of
+    textslam_tpu.geometry.sim3.horn_alignment, in float64."""
+    c1, c2 = P1.mean(0), P2.mean(0)
+    X1, X2 = P1 - c1, P2 - c2
+    M = X2.T @ X1
+    (Sxx, Sxy, Sxz), (Syx, Syy, Syz), (Szx, Szy, Szz) = M
+    N = np.array([
+        [Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx],
+        [Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz],
+        [Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy],
+        [Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz],
+    ])
+    q = np.linalg.eigh(N)[1][:, -1]
+    q = q if q[0] >= 0 else -q
+    R = se3_np.qto_matrix(q / np.linalg.norm(q))
+    RX2 = X2 @ R.T
+    s = (X1 * RX2).sum() / max((RX2 * RX2).sum(), 1e-12)
+    return s, R, c1 - s * (R @ c2)
+
+
+def ate_rmse(est_ts, est_poses_cw, gt_poses_cw) -> float:
+    """Sim3-aligned ATE RMSE of camera centers (evo_ape -s protocol);
+    est_ts are frame indices into gt_poses_cw."""
+    est = np.asarray(est_poses_cw, np.float64)
+    gt = np.asarray(gt_poses_cw, np.float64)[[int(round(t)) for t in est_ts]]
+    est_C = se3_np.inverse(est)[:, 4:7]
+    gt_C = se3_np.inverse(gt)[:, 4:7]
+    s, R, t = _horn_alignment(gt_C, est_C)
+    aligned = s * est_C @ R.T + t
+    return float(np.sqrt((np.linalg.norm(aligned - gt_C, axis=-1) ** 2).mean()))

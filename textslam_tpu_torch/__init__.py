@@ -1,0 +1,26 @@
+"""textslam_tpu_torch — the PyTorch/CUDA port of textslam_tpu.
+
+Monocular keyframe SLAM with ORB scene points, ported slice by slice from
+the JAX package `textslam_tpu/`, which stays the reference. This slice is the
+scene-only pipeline (`Exp noText`): frame build, descriptor matching on a
+hand-written CUDA Hamming kernel, pose tracking, two-view initialization and
+the windowed point bundle adjustment.
+
+Plain tensor code is PyTorch; every Pallas kernel of the JAX package becomes
+a hand-written Hopper kernel under `csrc/`. The package never imports jax or
+textslam_tpu.
+"""
+
+import torch as _torch
+
+# Full float32 matmuls and convolutions. The JAX package pins f32 matmuls
+# (textslam_tpu/__init__.py) because reduced-precision products quantize
+# pixel coordinates (~100..600) in the two-view / triangulation / projection
+# chains and cost it 25x in ATE. TF32 keeps ~3 decimal digits, the same
+# hazard, so it is switched off for both cuBLAS and cuDNN.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from .config import TextSLAMConfig, Experiment  # noqa: E402,F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,185 @@
+"""Batched binary descriptor matching, port of textslam_tpu/ops/matching.py.
+
+The whole N1 x N2 Hamming distance matrix comes from one kernel launch
+(csrc/hamming.cu on the GPU); spatial windows, level gates and validity are
+masks on that matrix, and best-2 + column uniqueness are reductions over it.
+
+Descriptors are int32 [N, 8] tensors holding the bits of 256-bit ORB
+descriptors (see ops.orb).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+INF = 10_000  # > max possible Hamming distance (256)
+WORDS = 8  # 32-bit words per 256-bit descriptor
+_MAX_ROWS = 65535 * 64  # grid.y limit x rows per block (csrc/hamming.cu)
+
+
+def _check_desc(name: str, d: torch.Tensor) -> None:
+    if not isinstance(d, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(d).__name__}")
+    if d.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32 descriptor bits, got {d.dtype}")
+    if d.dim() != 2 or d.shape[1] != WORDS:
+        raise ValueError(f"{name} must have shape [N, {WORDS}], got {tuple(d.shape)}")
+    if not d.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """Pairwise Hamming distances between [N1, 8] and [N2, 8] int32
+    descriptors -> [N1, N2] int32.
+
+    CUDA tensors launch the hand-written kernel (csrc/hamming.cu) and count
+    the launch in `hamming_matrix.launches`; CPU tensors take the plain
+    version. Anything else raises: there is no fallback from the kernel to
+    the plain version."""
+    _check_desc("d1", d1)
+    _check_desc("d2", d2)
+    if d1.device != d2.device:
+        raise ValueError(f"d1 on {d1.device} but d2 on {d2.device}")
+    if d1.device.type == "cpu":
+        return hamming_matrix_plain(d1, d2)
+    if d1.device.type != "cuda":
+        raise RuntimeError(f"hamming_matrix has no kernel for device {d1.device}")
+    out = _hamming_cuda(d1, d2)
+    hamming_matrix.launches += 1
+    return out
+
+
+def _hamming_cuda(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/hamming.cu on the current stream of d1's device. Raises
+    when nvcc is missing, the build fails or the launch is refused."""
+    n1, n2 = d1.shape[0], d2.shape[0]
+    if n1 > _MAX_ROWS:
+        raise ValueError(f"hamming_matrix takes at most {_MAX_ROWS} rows, got {n1}")
+    from . import cuda_lib
+
+    fn = cuda_lib.load("hamming").hamming_matrix_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((n1, n2), dtype=torch.int32, device=d1.device)
+    with torch.cuda.device(d1.device):
+        stream = torch.cuda.current_stream(d1.device).cuda_stream
+        err = fn(d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n1, n2, stream)
+    if err != 0:
+        raise RuntimeError(f"hamming kernel launch failed: cudaError {err}")
+    return out
+
+
+hamming_matrix.launches = 0
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of int64 values in [0, 2^32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def hamming_matrix_plain(d1: torch.Tensor, d2: torch.Tensor,
+                         chunk_elems: int = 1 << 22) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: XOR + SWAR popcount.
+
+    Words widen to int64 and are masked to their low 32 bits first, so no
+    arithmetic right shift ever sees a negative int32. Rows go in chunks of
+    about `chunk_elems` int64 intermediates (32 MB) to bound memory."""
+    n1, n2 = d1.shape[0], d2.shape[0]
+    a = d1.long() & 0xFFFFFFFF
+    b = d2.long() & 0xFFFFFFFF
+    out = torch.empty((n1, n2), dtype=torch.int32, device=d1.device)
+    rows = max(1, chunk_elems // max(n2 * WORDS, 1))
+    for s in range(0, n1, rows):
+        x = a[s : s + rows, None, :] ^ b[None, :, :]
+        out[s : s + rows] = _popcount32(x).sum(dim=-1).to(torch.int32)
+    return out
+
+
+def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
+    """Best and second-best matches along axis 1 under a validity mask.
+
+    Returns (best_idx [N1], best_d [N1], second_d [N1]); invalid pairs get
+    distance INF. Ties are the normal case for small-integer distances: the
+    best index is the FIRST minimum (what XLA's top_k returns), and the
+    second distance is the minimum with that one column masked out."""
+    d = torch.where(mask, dist, INF)
+    best_idx = torch.argmin(d, dim=1)
+    best_d = d.gather(1, best_idx[:, None])[:, 0]
+    second_d = d.scatter(1, best_idx[:, None], INF).amin(dim=1)
+    return best_idx, best_d, second_d
+
+
+def window_mask(uv1: torch.Tensor, uv2: torch.Tensor, radius) -> torch.Tensor:
+    """[N1, N2] mask: |u1-u2|<=r and |v1-v2|<=r. radius may be scalar or
+    per-row [N1] (the reference scales the window by octave)."""
+    du = (uv1[:, None, 0] - uv2[None, :, 0]).abs()
+    dv = (uv1[:, None, 1] - uv2[None, :, 1]).abs()
+    if isinstance(radius, torch.Tensor) and radius.dim() == 1:
+        radius = radius[:, None]
+    return (du <= radius) & (dv <= radius)
+
+
+def level_mask(l1: torch.Tensor, l2: torch.Tensor, max_diff: Optional[int] = 0) -> torch.Tensor:
+    """[N1, N2] mask of pyramid-level agreement (None -> all True)."""
+    if max_diff is None:
+        return torch.ones((l1.shape[0], l2.shape[0]), dtype=torch.bool, device=l1.device)
+    return (l1[:, None] - l2[None, :]).abs() <= max_diff
+
+
+def rotation_histogram_filter(angles1, angles2, match_idx, match_ok, n_bins: int = 30, keep_bins: int = 3):
+    """Rotation-consistency check: keep only matches whose angle difference
+    falls into the `keep_bins` most populated histogram bins (ties between
+    bins resolve to the lower bin, as XLA's top_k does)."""
+    da = angles1 - angles2[match_idx]
+    two_pi = 2.0 * torch.pi
+    da = torch.remainder(da, two_pi)
+    bin_idx = torch.floor(da / (two_pi / n_bins)).long() % n_bins
+    counts = torch.zeros(n_bins, dtype=torch.int32, device=da.device).index_add_(
+        0, bin_idx, match_ok.int())
+    top_bins = torch.sort(counts, descending=True, stable=True).indices[:keep_bins]
+    in_top = (bin_idx[:, None] == top_bins[None, :]).any(dim=-1)
+    return match_ok & in_top
+
+
+def mutual_best_match(
+    d1: torch.Tensor,
+    d2: torch.Tensor,
+    valid1: torch.Tensor,
+    valid2: torch.Tensor,
+    pair_mask: Optional[torch.Tensor] = None,
+    max_dist: int = 50,
+    ratio: Optional[float] = None,
+    d1_alt: Optional[torch.Tensor] = None,
+):
+    """One-shot matcher: best2 along rows + uniqueness along columns.
+
+    Returns (idx2 [N1] int64, ok [N1] bool): idx2[i] is the match of d1[i].
+    Column collisions keep the row with the smaller distance, and among equal
+    distances the highest row (the JAX package's scatter-min / scatter-max).
+    d1_alt supplies a second descriptor per row, matched as min(d, d_alt)."""
+    mask = valid1[:, None] & valid2[None, :]
+    if pair_mask is not None:
+        mask = mask & pair_mask
+    dist = hamming_matrix(d1, d2)
+    if d1_alt is not None:
+        dist = torch.minimum(dist, hamming_matrix(d1_alt, d2))
+    idx2, best_d, second_d = masked_best2(dist, mask)
+    ok = best_d <= max_dist
+    if ratio is not None:
+        ok = ok & (best_d.float() < ratio * second_d.float())
+    n1, n2 = dist.shape
+    rows = torch.arange(n1, device=dist.device)
+    claim_d = torch.where(ok, best_d, INF)
+    col_best = torch.full((n2,), INF, dtype=claim_d.dtype, device=dist.device).scatter_reduce(
+        0, idx2, claim_d, "amin", include_self=True)
+    col_winner = torch.full((n2,), -1, dtype=torch.int64, device=dist.device).scatter_reduce(
+        0, idx2, torch.where(claim_d == col_best[idx2], rows, -1), "amax", include_self=True)
+    ok = ok & (col_winner[idx2] == rows)
+    return idx2, ok
