@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Device-time profile of the port's text pipeline on one GPU.
+
+    python3 chip_profile.py [--frames 24] [--start 14] [--end 20]
+
+Runs chip_smoke.py's text run (its text_setup: the rendered 640x480 text
+world, seed 0, through TextSLAM(TextSLAMConfig(), device="cuda") with the
+ground-truth detections) and traces frames [start, end) with
+torch.profiler (CPU + CUDA activities). Prints the card's name and power
+limit, the traced window's host wall time, the summed device kernel time
+and the device's busy share (one stream: kernels do not overlap), the
+kernel launches per frame, the host time in cudaLaunchKernel, and the top
+device kernels by time. Then times whole text runs in turns
+(deterministic, atomic, atomic, deterministic) with the BA's segment sums
+(solver/ba.py::_segment_sum) in PyTorch's deterministic mode, as the port
+runs them, and as plain index_add_ (CUDA atomics); prints each run's
+per-frame median and whether the runs of each mode ended on identical
+keyframe poses and thetas. Exits non-zero without a CUDA device. Imports
+neither jax nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def segment_sum_ab(text_setup, n_frames: int, card: str) -> int:
+    import numpy as np
+    import torch
+    from textslam_tpu_torch.solver import ba
+
+    deterministic = ba._segment_sum
+
+    def atomic(src, idx, n):
+        return src.new_zeros((n,) + src.shape[1:]).index_add_(0, idx, src)
+
+    ends = {"deterministic": [], "atomic": []}
+    for mode in ("deterministic", "atomic", "atomic", "deterministic"):
+        ba._segment_sum = deterministic if mode == "deterministic" else atomic
+        try:
+            slam, frames, dets, _, _ = text_setup(n_frames)
+            ms = []
+            for i, img in enumerate(frames):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                slam.track_monocular(img, float(i), detections=dets[i])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            ba._segment_sum = deterministic
+        m = slam.map
+        ends[mode].append((np.stack([m.kf_pose[kf.kid] for kf in m.keyframes]),
+                           m.tx_theta[: m.n_texts].copy()))
+        print(f"segment sums {mode}: per-frame median {np.median(ms[2:]):.2f} ms over frames "
+              f"2..{len(ms) - 1}, whole run {sum(ms):.1f} ms  [{card}]", flush=True)
+    for mode, (a, b) in ends.items():
+        same = all(x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
+        print(f"segment sums {mode}: the two runs end on identical keyframe poses and thetas: "
+              f"{same}")
+    return 0
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=24)
+    ap.add_argument("--start", type=int, default=14)
+    ap.add_argument("--end", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device; this profile needs one GPU", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [root, os.path.join(root, "tests")]
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import card_line, text_setup
+    from textslam_tpu_torch.ops import matching, patch_sample
+
+    card = card_line()
+    print(card)
+    slam, frames, dets, _, _ = text_setup(args.frames)
+    for i in range(args.start):
+        slam.track_monocular(frames[i], float(i), detections=dets[i])
+    torch.cuda.synchronize()
+    n_kf0 = len(slam.map.keyframes)
+    launches0 = (matching.hamming_matrix.launches, patch_sample.grouped_bilinear_stack.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.start, args.end):
+            slam.track_monocular(frames[i], float(i), detections=dets[i])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n = args.end - args.start
+    rows = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in rows if dev_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    launch_host_ms = sum(e.cpu_time_total for e in rows if e.key == "cudaLaunchKernel") / 1e3
+    lines = [
+        f"frames {args.start}..{args.end - 1} ({n} frames, {len(slam.map.keyframes) - n_kf0} "
+        f"keyframe insertions): host wall {wall_ms:.1f} ms ({wall_ms / n:.1f} ms/frame), "
+        f"device kernel time {dev_ms:.1f} ms ({dev_ms / n:.1f} ms/frame), device busy "
+        f"{100 * dev_ms / wall_ms:.1f}%",
+        f"device kernel executions {n_launch} ({n_launch / n:.0f} per frame); host time in "
+        f"cudaLaunchKernel {launch_host_ms:.1f} ms",
+        f"port kernels launched in the window: hamming_matrix "
+        f"{matching.hamming_matrix.launches - launches0[0]}, grouped_bilinear_stack "
+        f"{patch_sample.grouped_bilinear_stack.launches - launches0[1]}",
+        "top device kernels (name | executions | device ms | share of device time):",
+    ]
+    ranked = sorted(kernels, key=dev_us, reverse=True)
+    ours = [e for e in ranked if "patch_sample_kernel" in e.key or "hamming" in e.key]
+    for e in ranked[:25] + [None] + ours:
+        if e is None:
+            lines.append("the port's own kernels:")
+            continue
+        lines.append(f"  {e.key[:90]:<90} | {e.count:>7} | {dev_us(e) / 1e3:>9.3f} | "
+                     f"{100 * dev_us(e) / 1e3 / dev_ms:>5.2f}%")
+    print("\n".join(lines))
+    return segment_sum_ab(text_setup, args.frames, card)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,37 +6,80 @@
 Phases, each of which must pass (any failure exits non-zero):
 1. require a CUDA device; print the card's name and power limit
    (nvidia-smi);
-2. build csrc/hamming.cu from this checkout (nvcc) and print the build time;
+2. build every kernel of the port from this checkout, one nvcc per source,
+   all started together (csrc/hamming.cu, csrc/patch_sample.cu), and print
+   the build time;
 3. hold the Hamming kernel against its plain PyTorch version on random
-   descriptors at the main path's shapes — exact equality — and time both
-   with CUDA events;
-4. render a 640x480 plane-world sequence (tests/torch_synth.py, numpy only);
-5. run TextSLAM(cfg, device="cuda") with no_text=True over it, at the full
-   ORB / map / BA-window configuration, and check the tracker state, the
-   keyframe and point counts, ATE against ground truth, that the Hamming
-   kernel was launched during the run, and that the map and solver tensors
-   lay on the GPU;
-6. print per-frame and keyframe-insertion times, one JSON line describing
-   the kernel, and last the JSON result line.
+   descriptors at the main path's shapes (exact equality) and time both with
+   CUDA events;
+4. hold the grouped region sampler against its plain PyTorch version on
+   the images the main path hands it (a frame's packed pyramid levels 0..2
+   read in place, and keyframe stacks), at the main path's group counts,
+   with NaN, off-image, beyond-region and last-pixel samples (masks equal,
+   values within 1e-3), and time the kernel, the plain version and the
+   nearest one-call PyTorch equivalent (F.grid_sample over the gathered
+   images, the gather's copy included);
+5. the scene-only pipeline (no_text=True): 40 rendered 640x480 plane-world
+   frames (tests/torch_synth.py, numpy only) through TextSLAM(cfg,
+   device="cuda") at the full ORB / map / BA-window configuration; checks
+   tracking, ATE against ground truth, the Hamming kernel's launches on
+   that run and that the track-step and solver tensors lay on the GPU;
+6. the text pipeline, the default configuration (TextSLAMConfig()): a
+   rendered 640x480 text world with its ground-truth detections; checks
+   tracking, text objects and their plane normals against ground truth
+   (the bars tests/test_e2e_text.py holds the JAX package to), keyframe
+   ATE, both kernels' launches on that run and the devices;
+7. print per-frame and keyframe-insertion times, one JSON line describing
+   the kernels, and last the JSON result line.
+
+    python3 chip_smoke.py --seed-study 0-21
+
+runs only the text pipeline under the given RANSAC seeds and holds each run
+to those bars.
 
 Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
 import sys
 import time
 
-N_FRAMES = 40
+N_SCENE_FRAMES = 40
+N_TEXT_FRAMES = 24  # ~8 keyframes: at least 6 and below the 20 of the loop gate
 # Hamming shapes on the main path: tracked frames [P, 1000] for point pools
 # of 4096..32768, two-view init [3000, 3000], keyframe triangulation
 # [1000, 1000], and a ragged shape that exercises the edge masking
 HAMMING_SHAPES = [(4096, 1000), (32768, 1000), (3000, 3000), (1000, 1000), (1001, 999)]
-KF_ATE_MAX = 0.012  # the bounds tests/test_e2e_scene.py holds the JAX package to
+# sampler: groups of Q = 64 features x 8 pattern samples (one text box per
+# group) on the images the main path hands the kernel. The path cases: one
+# frame's packed pyramid level, sampled in place (a view whose row stride is
+# the level-0 width: fused_pose_refine), with G = 4 / 8 / 16 / 32 objects; and
+# keyframe stacks assembled the way TextFrontend._stack_levels assembles them,
+# K = 16 slots with G = 16 (maturation) and K = 32 slots with G = 32 (the
+# windowed BA's pair tier). Off the path, kept as a stress case: a 20-KF stack
+# with G = 640 (20 KFs x 32 texts, the window bench.py times) and a ragged G = 7.
+SAMPLER_LEVELS = (0, 1, 2)
+SAMPLER_FRAME_GROUPS = (4, 8, 16, 32)
+SAMPLER_STACKS = ((16, 16), (32, 32))  # (slots, groups)
+SAMPLER_OFF_PATH = ((20, 640), (20, 7))
+SAMPLER_Q = 512
+SAMPLER_ATOL = 1e-3  # intensities in [0, 255], Sobel values up to ~1,020
+KF_ATE_MAX = 0.012  # the bound tests/test_e2e_scene.py / test_e2e_text.py hold JAX to
 FRAME_ATE_MAX = 0.025
+# the bars tests/test_e2e_text.py holds the JAX package's text planes to:
+THETA_COS_MIN = 0.95  # GOOD objects with >= 3 KF observations
+THETA_COS_BASIN = 0.6  # every other GOOD object: not a wrong-basin plane
+THETA_COS_CONVERGED = 0.99  # ... and at least this share of GOOD planes above it
+CONVERGED_SHARE_MIN = 0.5
+# H100 SXM datasheet peaks: HBM bytes/s; 32-bit
+# operations outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_OPS32 = 67e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -67,6 +110,13 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the 32-bit peak."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def compare_hamming(matching, card: str):
     """Kernel vs plain version at every path shape; exact equality."""
     import torch
@@ -86,141 +136,477 @@ def compare_hamming(matching, card: str):
         check(int(want.min()) >= 0 and int(want.max()) <= 256, "plain hamming out of range")
         ms = time_ms(lambda: matching.hamming_matrix(d1, d2), iters=20)
         plain_ms = time_ms(lambda: matching.hamming_matrix_plain(d1, d2), iters=5)
-        rows.append({"shape": [n1, n2], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        # descriptors read once, the int32 matrix written once; XOR + popcount
+        # + add per word pair
+        bound_ms, bound_by = bound((n1 + n2) * 32 + n1 * n2 * 4, n1 * n2 * 8 * 3)
+        rows.append({"shape": [n1, n2], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         print(f"hamming {n1}x{n2}: equal, max_abs_err {err}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms  [{card}]")
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
     return rows
 
 
-def run_slam(frames, gt, card: str):
-    """The port's main path on the GPU, with the checks of phase 5."""
-    import numpy as np
+def _sampler_pyramids(n: int = 4):
+    """Packed [4, 480, 640, 3] pyramids (intensity, sobel-x, sobel-y) of n
+    rendered 640x480 text-world frames, built on the card as build_frame
+    builds them."""
     import torch
     import torch_synth
-    from textslam_tpu_torch.config import CameraConfig, TextSLAMConfig
-    from textslam_tpu_torch.frontend import tracking
-    from textslam_tpu_torch.ops import matching
-    from textslam_tpu_torch.solver import ba
-    from textslam_tpu_torch.system import TextSLAM
+    from textslam_tpu_torch.ops import pyramid
 
-    # record the devices of every tensor entering / leaving the per-frame
-    # track step and the BA solver (the map's device-side columns and the
-    # solver state)
-    devices = set()
+    world = torch_synth.TextWorld(seed=0)
+    out = []
+    for pose in torch_synth.camera_path(n * 6)[::6]:
+        img = torch.as_tensor(world.render(pose), dtype=torch.float32, device="cuda")
+        imgs, grads = pyramid.build_pyramid(img, levels=4)
+        out.append(pyramid.pack_pyramid(imgs, grads)["data"])
+    return out
+
+
+def _sampler_stack(pyrs, level: int, n_slots: int):
+    """A keyframe stack as TextFrontend._stack_levels assembles it: a
+    [n_slots, H_l, W_l, 3] tensor whose slots are copied from packed
+    pyramids' level views (here the rendered frames, cycled)."""
+    import torch
+
+    H, W = 480 >> level, 640 >> level
+    st = torch.zeros((n_slots, H, W, 3), device="cuda")
+    for i in range(n_slots):
+        st[i] = pyrs[i % len(pyrs)][level, :H, :W, :3]
+    return st
+
+
+def _sampler_samples(gen, K, H, W, G, level):
+    """G groups of Q clustered samples (one text box per group, 64 features
+    x the 8-sample pattern) on images 0..K-1, plus the edge cases: a NaN
+    projection, an off-image sample, a sample beyond its region and samples
+    at exactly the last pixel / row / column."""
+    import torch
+
+    dev = "cuda"
+    group_k = torch.randint(0, K, (G,), device=dev, generator=gen)
+    s = 2.0 ** level
+    bw = (torch.rand((G, 1), device=dev, generator=gen) * 80 + 140) / s  # box px at level
+    bh = (torch.rand((G, 1), device=dev, generator=gen) * 40 + 70) / s
+    x0 = torch.rand((G, 1), device=dev, generator=gen) * (W - bw - 4) + 2
+    y0 = torch.rand((G, 1), device=dev, generator=gen) * (H - bh - 4) + 2
+    x0[-1], y0[-1] = W - 1 - bw[-1], H - 1 - bh[-1]  # the last box in the bottom-right corner
+    u = x0 + torch.rand((G, SAMPLER_Q), device=dev, generator=gen) * bw
+    v = y0 + torch.rand((G, SAMPLER_Q), device=dev, generator=gen) * bh
+    uv = torch.stack([u, v], dim=-1).contiguous()
+    uv[0, 0] = torch.tensor([float("nan"), float("nan")])  # broken projection
+    uv[0, 1] = torch.tensor([-3.0, 5.0])  # off-image
+    uv[0, 2] = uv[0, 3] + torch.tensor([400.0 / s, 0.0], device=dev)  # beyond the region
+    uv[-1, 0] = torch.tensor([W - 1.0, H - 1.0])  # the last pixel exactly
+    uv[-1, 1] = torch.tensor([W - 1.0, float(v[-1, 5])])  # the last column
+    uv[-1, 2] = torch.tensor([float(u[-1, 5]), H - 1.0])  # the last row
+    return group_k, uv
+
+
+def _sampler_bytes(patch_sample, imgs, group_k, uv):
+    """Bytes the sampler must move on these inputs: uv and the mask read,
+    the samples written, meta read, and each distinct corner pixel's 3
+    channels read once."""
+    import torch
+
+    K, H, W, C = imgs.shape
+    _, meta, mask, RH, RW = patch_sample.regions(imgs, group_k, uv, 160, 384)
+    k, oy, ox = meta.long().unbind(-1)
+    x0 = ox[:, None] + (uv[..., 0] - ox[:, None]).clamp(0, RW - 1).floor().long().clamp(0, RW - 2)
+    y0 = oy[:, None] + (uv[..., 1] - oy[:, None]).clamp(0, RH - 1).floor().long().clamp(0, RH - 2)
+    corners = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            y, x = y0 + dy, x0 + dx
+            ok = mask & (y < H) & (x < W)
+            corners.append(((k[:, None] * H + y) * W + x)[ok])
+    n_pix = int(torch.unique(torch.cat(corners)).numel())
+    G, Q = mask.shape
+    return G * Q * (2 * 4 + 1 + C * 4) + G * 12 + n_pix * C * 4, G * Q * C * 12
+
+
+def _sampler_cases(pyrs):
+    """(label, on_path, level, imgs, G) for every sampler case."""
+    for level in SAMPLER_LEVELS:
+        H, W = 480 >> level, 640 >> level
+        view = pyrs[0][level, :H, :W, :3][None]  # in place: row stride 640 x 3
+        for G in SAMPLER_FRAME_GROUPS:
+            yield "frame level view", True, level, view, G
+        for slots, G in SAMPLER_STACKS:
+            yield f"{slots}-slot KF stack", True, level, _sampler_stack(pyrs, level, slots), G
+        for slots, G in SAMPLER_OFF_PATH:
+            yield f"{slots}-slot KF stack, off the path", False, level, \
+                _sampler_stack(pyrs, level, slots), G
+
+
+def compare_sampler(patch_sample, card: str):
+    """Kernel vs plain version on the inputs the main path hands the kernel:
+    masks equal, values within SAMPLER_ATOL; times of kernel, plain and
+    F.grid_sample."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pyrs = _sampler_pyramids()
+    rows = []
+    for label, on_path, level, imgs, G in _sampler_cases(pyrs):
+        K, H, W, _ = imgs.shape
+        group_k, uv = _sampler_samples(gen, K, H, W, G, level)
+        vals, mask = patch_sample.grouped_bilinear_stack(imgs, group_k, uv)
+        pv, pm = patch_sample.grouped_bilinear_stack_plain(imgs, group_k, uv)
+        torch.cuda.synchronize()
+        where = f"{label} level {level} {list(imgs.shape)} G={G}"
+        check(torch.equal(mask, pm), f"sampler masks differ: {where}")
+        check(bool(torch.isfinite(vals).all()), f"non-finite sampler values: {where}")
+        err = float((vals - pv).abs().max())
+        check(err <= SAMPLER_ATOL, f"sampler kernel vs plain max err {err}: {where}")
+        check(not bool(mask[0, 0]) and not bool(mask[0, 1]), "NaN / off-image samples kept")
+        check(bool(mask[-1, :3].all()), "last-pixel / last-row / last-column samples masked")
+        grid = torch.stack([uv[..., 0] / (W - 1) * 2 - 1, uv[..., 1] / (H - 1) * 2 - 1],
+                           dim=-1)[:, :, None, :]
+
+        def library():
+            return F.grid_sample(imgs.index_select(0, group_k).permute(0, 3, 1, 2), grid,
+                                 mode="bilinear", align_corners=True)
+
+        ms = time_ms(lambda: patch_sample.grouped_bilinear_stack(imgs, group_k, uv), iters=50)
+        # the kernel launch alone, on the wrapper's precomputed regions
+        uv_c, meta, rmask, RH, RW = patch_sample.regions(imgs, group_k, uv, 160, 384)
+        launch_ms = time_ms(lambda: patch_sample._launch(imgs, meta, uv_c, rmask, RH, RW),
+                            iters=200)
+        plain_ms = time_ms(lambda: patch_sample.grouped_bilinear_stack_plain(imgs, group_k, uv),
+                           iters=20)
+        library_ms = time_ms(library, iters=20)
+        bound_ms, bound_by = bound(*_sampler_bytes(patch_sample, imgs, group_k, uv))
+        rows.append({"case": label, "on_path": on_path, "level": level, "stack": list(imgs.shape),
+                     "row_stride": imgs.stride(1), "groups": G, "Q": SAMPLER_Q,
+                     "max_abs_err": err, "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"sampler {where} (row stride {imgs.stride(1)}) Q={SAMPLER_Q}: masks equal, "
+              f"max_abs_err {err:.2e}, wrapper {ms:.4f} ms (origins, mask, launch), "
+              f"kernel launch alone {launch_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, grid_sample incl. gather copy {library_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by})  [{card}]")
+    return rows
+
+
+def _watch(devices):
+    """A wrapper factory recording the device of every tensor going into or
+    out of the wrapped function."""
+    import torch
 
     def watch(fn):
         def wrapped(*args, **kw):
             out = fn(*args, **kw)
             for x in list(args) + list(kw.values()) + [out]:
-                for t in (x if isinstance(x, tuple) else (x,)):
+                for t in (x if isinstance(x, (tuple, list)) else (x,)):
                     if isinstance(t, torch.Tensor):
                         devices.add(t.device.type)
             return out
         return wrapped
+    return watch
 
-    tracking.fused_track_step = watch(tracking.fused_track_step)
-    ba.solve_ba = watch(ba.solve_ba)
 
-    cfg = TextSLAMConfig(
-        no_text=True,
-        camera=CameraConfig(fx=torch_synth.FX, fy=torch_synth.FY, cx=torch_synth.CX,
-                            cy=torch_synth.CY, width=torch_synth.W, height=torch_synth.H,
-                            fps=10.0),
-    )
-    slam = TextSLAM(cfg, device="cuda")
-    matching.hamming_matrix.launches = 0  # count only the main path's launches
-    # frames before tracking starts (init candidates, two-view init) are
-    # timed apart from steady tracked frames and keyframe insertions
+def drive(slam, frames, dets, counters):
+    """Feed the frames; per-frame host times (synchronized), split into
+    init, tracked and keyframe-insertion frames, with kernel launches per
+    frame."""
+    import torch
+
     init_ms, frame_ms, kf_ms, n_ok = [], [], [], 0
+    launches = {"frame": {k: [] for k in counters}, "kf": {k: [] for k in counters}}
+    for fn in counters.values():
+        fn.launches = 0  # count only this run's launches
     for i, img in enumerate(frames):
         n_kf = len(slam.map.keyframes)
         tracking_before = slam.tracker.state == 1
+        before = {k: fn.launches for k, fn in counters.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pose = slam.track_monocular(img, float(i))
+        pose = slam.track_monocular(img, float(i), detections=None if dets is None else dets[i])
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
         n_ok += pose is not None
         if not tracking_before:
             init_ms.append(dt)
-        else:
-            (kf_ms if len(slam.map.keyframes) > n_kf else frame_ms).append(dt)
-    launches = matching.hamming_matrix.launches
+            continue
+        kind = "kf" if len(slam.map.keyframes) > n_kf else "frame"
+        (kf_ms if kind == "kf" else frame_ms).append(dt)
+        for k, fn in counters.items():
+            launches[kind][k].append(fn.launches - before[k])
+    total = {k: fn.launches for k, fn in counters.items()}
+    return init_ms, frame_ms, kf_ms, n_ok, launches, total
 
-    check(slam.tracker.state == 1, "tracker not OK at the end of the sequence")
-    check(n_ok >= len(frames) - 5, f"only {n_ok}/{len(frames)} frames tracked")
-    check(len(slam.map.keyframes) >= 3, f"{len(slam.map.keyframes)} keyframes")
-    check(slam.map.n_points > 100, f"{slam.map.n_points} map points")
+
+def _summary(name, frames, init_ms, frame_ms, kf_ms, n_ok, slam, gt, launches, total,
+             devices, card):
+    import numpy as np
+    import torch_synth
+    from textslam_tpu_torch.utils.profiling import report
+
     kfs = slam.map.keyframes
     kposes = np.stack([slam.map.kf_pose[kf.kid] for kf in kfs])
-    check(np.isfinite(kposes).all(), "non-finite keyframe pose")
+    check(np.isfinite(kposes).all(), f"{name}: non-finite keyframe pose")
     kf_ate = torch_synth.ate_rmse([kf.timestamp for kf in kfs], kposes, gt)
     traj = slam.tracker.trajectory
     frame_ate = torch_synth.ate_rmse([t for t, _ in traj], np.stack([p for _, p in traj]), gt)
-    check(launches > 0, "the main path never launched the Hamming kernel")
-    check(devices == {"cuda"}, f"track-step / solver tensors on {sorted(devices)}")
-    check(kf_ate < KF_ATE_MAX, f"keyframe ATE {kf_ate} >= {KF_ATE_MAX}")
-    check(frame_ate < FRAME_ATE_MAX, f"frame ATE {frame_ate} >= {FRAME_ATE_MAX}")
-
-    from textslam_tpu_torch.utils.profiling import report
-
-    print(report())
+    check(slam.tracker.state == 1, f"{name}: tracker not OK at the end of the sequence")
+    check(n_ok >= len(frames) - 5, f"{name}: only {n_ok}/{len(frames)} frames tracked")
+    check(devices == {"cuda"}, f"{name}: track-step / solver tensors on {sorted(devices)}")
+    check(kf_ate < KF_ATE_MAX, f"{name}: keyframe ATE {kf_ate} >= {KF_ATE_MAX}")
+    print(report(reset=True))
     res = {
         "frames": len(frames), "tracked": n_ok, "keyframes": len(kfs),
         "points": int(slam.map.n_points), "kf_ate": kf_ate, "frame_ate": frame_ate,
-        "hamming_launches": launches, "tensor_devices": sorted(devices),
+        "launches": total, "tensor_devices": sorted(devices),
+        "launches_per_tracked_frame": {k: float(np.mean(v)) if v else 0.0
+                                       for k, v in launches["frame"].items()},
+        "launches_per_kf_insertion": {k: float(np.mean(v)) if v else 0.0
+                                      for k, v in launches["kf"].items()},
         "frame_ms_median": float(np.median(frame_ms)),
         "frame_ms_p90": float(np.percentile(frame_ms, 90)),
         "kf_insert_ms_median": float(np.median(kf_ms)),
+        "init_ms": init_ms, "frame_ms": frame_ms, "kf_ms": kf_ms,
     }
-    print(f"init ms: {init_ms}")
-    print(f"frame ms: {frame_ms}")
-    print(f"KF insertion ms: {kf_ms}")
-    print(f"slam: {n_ok}/{len(frames)} tracked, {len(kfs)} KFs, {slam.map.n_points} points, "
-          f"KF ATE {kf_ate:.6f}, frame ATE {frame_ate:.6f}, hamming launches {launches}")
-    print(f"per-frame ms: median {res['frame_ms_median']:.3f}, p90 {res['frame_ms_p90']:.3f}; "
-          f"KF insertion ms: median {res['kf_insert_ms_median']:.3f} "
+    print(f"{name} init ms: {[round(x, 2) for x in init_ms]}")
+    print(f"{name} frame ms: {[round(x, 2) for x in frame_ms]}")
+    print(f"{name} KF insertion ms: {[round(x, 2) for x in kf_ms]}")
+    print(f"{name}: {n_ok}/{len(frames)} tracked, {len(kfs)} KFs, {slam.map.n_points} points, "
+          f"KF ATE {kf_ate:.6f}, frame ATE {frame_ate:.6f}, launches {total}, per tracked frame "
+          f"{res['launches_per_tracked_frame']}, per KF insertion {res['launches_per_kf_insertion']}")
+    print(f"{name} per-frame ms: median {res['frame_ms_median']:.3f}, p90 "
+          f"{res['frame_ms_p90']:.3f}; KF insertion ms: median {res['kf_insert_ms_median']:.3f} "
           f"over {len(kf_ms)} insertions  [{card}]")
     return res
 
 
+def _camera(torch_synth, cfg_mod):
+    return cfg_mod.CameraConfig(fx=torch_synth.FX, fy=torch_synth.FY, cx=torch_synth.CX,
+                                cy=torch_synth.CY, width=torch_synth.W, height=torch_synth.H,
+                                fps=10.0)
+
+
+def run_scene(card: str):
+    """The scene-only slice's path (phase 5)."""
+    import dataclasses
+    import torch_synth
+    from textslam_tpu_torch import config
+    from textslam_tpu_torch.frontend import tracking
+    from textslam_tpu_torch.ops import matching
+    from textslam_tpu_torch.solver import ba
+    from textslam_tpu_torch.system import TextSLAM
+
+    frames, gt = torch_synth.render_sequence(N_SCENE_FRAMES, seed=0, kind="lateral")
+    devices = set()
+    watch = _watch(devices)
+    orig = (tracking.fused_track_step, ba.solve_ba)
+    tracking.fused_track_step, ba.solve_ba = watch(orig[0]), watch(orig[1])
+    try:
+        cfg = dataclasses.replace(config.TextSLAMConfig(no_text=True),
+                                  camera=_camera(torch_synth, config))
+        slam = TextSLAM(cfg, device="cuda")
+        out = drive(slam, frames, None, {"hamming_matrix": matching.hamming_matrix})
+    finally:
+        tracking.fused_track_step, ba.solve_ba = orig
+    res = _summary("scene", frames, *out[:4], slam, gt, *out[4:], devices, card)
+    check(res["launches"]["hamming_matrix"] > 0, "scene: the Hamming kernel was never launched")
+    check(res["frame_ate"] < FRAME_ATE_MAX, f"scene: frame ATE {res['frame_ate']}")
+    return res
+
+
+def text_setup(n_frames: int = N_TEXT_FRAMES, seed: int = 0):
+    """The text run's input and system: n_frames of the rendered 640x480
+    text world (world seed 0, lateral path) with ground-truth detections,
+    and TextSLAM(TextSLAMConfig(seed=seed), device="cuda") with the
+    renderer's camera (seed drives two-view and theta RANSAC). Returns
+    (slam, frames, detections, ground-truth Tcw, world)."""
+    import dataclasses
+    import torch_synth
+    from textslam_tpu_torch import config
+    from textslam_tpu_torch.system import TextSLAM
+
+    frames, dets, gt, world = torch_synth.render_text_sequence(n_frames, seed=0)
+    cfg = dataclasses.replace(config.TextSLAMConfig(seed=seed),
+                              camera=_camera(torch_synth, config))
+    check(not cfg.no_text, "the default configuration runs text")
+    return TextSLAM(cfg, device="cuda"), frames, dets, gt, world
+
+
+def text_planes(slam, gt, world):
+    """Every GOOD object's plane normal against ground truth, held to the
+    bars tests/test_e2e_text.py holds the JAX package to. Returns
+    (GOOD count, [{tid, string, kf_obs, cos}], [failed bars])."""
+    import numpy as np
+    import torch_synth
+    from textslam_tpu_torch.mapper.state import TEXT_GOOD
+
+    m = slam.map
+    good = [t for t in range(m.n_texts) if m.tx_valid[t] and m.tx_state[t] == TEXT_GOOD]
+    cosines = []
+    for tid in good:
+        boxes = [b for b in world.boxes if b[2] == m.tx_string[tid]]
+        if not boxes:
+            continue
+        frame_id = m.keyframes[int(m.tx_host[tid])].frame_id
+        th_gt = torch_synth.plane_theta_in_cam(world.planes[boxes[0][0]][0], gt[frame_id])
+        th = m.tx_theta[tid]
+        cos = float(abs(th @ th_gt) / (np.linalg.norm(th) * np.linalg.norm(th_gt) + 1e-12))
+        cosines.append({"tid": tid, "string": m.tx_string[tid],
+                        "kf_obs": len(m.kfs_observing_text(tid)), "cos": cos})
+    failed = [] if m.n_texts >= 2 else [f"only {m.n_texts} text objects"]
+    for c in cosines:
+        bar = THETA_COS_MIN if c["kf_obs"] >= 3 else THETA_COS_BASIN
+        if not c["cos"] > bar:
+            failed.append(f"GOOD object {c['tid']} {c['string']} ({c['kf_obs']} KF obs) normal "
+                          f"cos {c['cos']:.5f} <= {bar}")
+    if not any(c["kf_obs"] >= 3 for c in cosines):
+        failed.append("no GOOD object with >= 3 KF observations")
+    share = sum(c["cos"] > THETA_COS_CONVERGED for c in cosines) / max(len(cosines), 1)
+    if share < CONVERGED_SHARE_MIN:
+        failed.append(f"only {share:.0%} of GOOD planes at cos > {THETA_COS_CONVERGED}")
+    return len(good), cosines, failed
+
+
+def _planes_line(cosines):
+    return f"{[(c['string'], c['kf_obs'], round(c['cos'], 5)) for c in cosines]}"
+
+
+def run_text(card: str):
+    """This slice's path, the default configuration with text (phase 6)."""
+    from textslam_tpu_torch.frontend import text
+    from textslam_tpu_torch.ops import matching, patch_sample
+    from textslam_tpu_torch.solver import ba
+
+    slam, frames, dets, gt, world = text_setup()
+    devices = set()
+    watch = _watch(devices)
+    shapes = {}  # (groups, samples per group, level H, level W) -> sampler calls
+    sample_values = ba._sample_text_values
+
+    def census(images, tgt, uv, pair_feat):
+        if pair_feat > 0:  # the grouped contract, i.e. the sampler kernel
+            key = (uv.shape[0] // pair_feat, pair_feat * uv.shape[1], images.shape[1],
+                   images.shape[2])
+            shapes[key] = shapes.get(key, 0) + 1
+        return sample_values(images, tgt, uv, pair_feat)
+
+    orig = (text.fused_frame_chain, text.fused_ba_schedule, ba.solve_ba)
+    text.fused_frame_chain, text.fused_ba_schedule, ba.solve_ba = (watch(f) for f in orig)
+    ba._sample_text_values = census
+    try:
+        out = drive(slam, frames, dets, {"hamming_matrix": matching.hamming_matrix,
+                                         "grouped_bilinear_stack":
+                                             patch_sample.grouped_bilinear_stack})
+    finally:
+        text.fused_frame_chain, text.fused_ba_schedule, ba.solve_ba = orig
+        ba._sample_text_values = sample_values
+    res = _summary("text", frames, *out[:4], slam, gt, *out[4:], devices, card)
+    for k, n in res["launches"].items():
+        check(n > 0, f"text: the {k} kernel was never launched")
+    n_good, cosines, failed = text_planes(slam, gt, world)
+    print(f"text objects: {slam.map.n_texts}, GOOD {n_good}; GOOD normals vs ground truth "
+          f"(string, KF observations, cos): {_planes_line(cosines)}")
+    check(not failed, f"text: {failed}")
+    res.update(n_texts=int(slam.map.n_texts), n_good=n_good, theta_cos=cosines,
+               sampler_shapes=[[*k, n] for k, n in sorted(shapes.items())])
+    print(f"sampler calls by (groups, samples/group, level H, level W): {sorted(shapes.items())}")
+    return res
+
+
+def run_text_seeds(seeds, card: str):
+    """The text run again under other RANSAC seeds (TextSLAMConfig.seed):
+    tracking, keyframe ATE and the text-plane bars of every run; fails
+    when any run misses one."""
+    import numpy as np
+    import torch_synth
+
+    misses = []
+    for seed in seeds:
+        t0 = time.perf_counter()
+        slam, frames, dets, gt, world = text_setup(seed=seed)
+        n_ok = sum(slam.track_monocular(img, float(i), detections=dets[i]) is not None
+                   for i, img in enumerate(frames))
+        kfs = slam.map.keyframes
+        kf_ate = torch_synth.ate_rmse([kf.timestamp for kf in kfs],
+                                      np.stack([slam.map.kf_pose[kf.kid] for kf in kfs]), gt)
+        _, cosines, failed = text_planes(slam, gt, world)
+        if n_ok < len(frames) - 5:
+            failed.append(f"only {n_ok}/{len(frames)} frames tracked")
+        if not kf_ate < KF_ATE_MAX:
+            failed.append(f"keyframe ATE {kf_ate:.6f} >= {KF_ATE_MAX}")
+        misses += [(seed, f) for f in failed]
+        print(f"text seed {seed}: {'passed' if not failed else 'FAILED ' + str(failed)}; "
+              f"{n_ok}/{len(frames)} tracked, {len(kfs)} KFs, KF ATE {kf_ate:.6f}, GOOD normals "
+              f"{_planes_line(cosines)} ({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
+    print(f"text seeds: {len(seeds) - len({s for s, _ in misses})}/{len(seeds)} passed every bar")
+    check(not misses, f"text seeds: {misses}")
+
+
+def _seeds(text: str):
+    """'1,2,5-8' -> [1, 2, 5, 6, 7, 8]."""
+    out = []
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        out += list(range(int(lo), int(hi or lo) + 1))
+    return out
+
+
 def main() -> int:
+    import argparse
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed-study", metavar="SEEDS",
+                    help="only run the text pipeline under these RANSAC seeds (e.g. 0-15) and "
+                         "hold each run to the text bars")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU", file=sys.stderr)
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path[:0] = [root, os.path.join(root, "tests")]
-    import torch_synth
-    from textslam_tpu_torch.ops import cuda_lib, matching
+    from textslam_tpu_torch.ops import cuda_lib, matching, patch_sample
 
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if args.seed_study:
+        run_text_seeds(_seeds(args.seed_study), card)
+        return 0
 
     t0 = time.perf_counter()
-    lib = cuda_lib.build("hamming")
-    print(f"built {os.path.relpath(lib, root)} in {time.perf_counter() - t0:.2f} s")
+    names = ("hamming", "patch_sample")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        libs = list(ex.map(cuda_lib.build, names))
+    print(f"built {[os.path.relpath(p, root) for p in libs]} in "
+          f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
 
     hamming_rows = compare_hamming(matching, card)
+    sampler_rows = compare_sampler(patch_sample, card)
+    scene = run_scene(card)
+    textrun = run_text(card)
 
-    t0 = time.perf_counter()
-    frames, gt = torch_synth.render_sequence(N_FRAMES, seed=0, kind="lateral")
-    print(f"rendered {len(frames)} frames of {frames[0].shape[1]}x{frames[0].shape[0]} "
-          f"in {time.perf_counter() - t0:.1f} s")
-    slam = run_slam(frames, gt, card)
-
-    path_row = hamming_rows[0]  # [4096, 1000]: every tracked frame below 4096 points
-    kernel = {
-        "name": "hamming_matrix", "route": "cuda",
-        "source": "textslam_tpu_torch/csrc/hamming.cu",
-        "replaces": "textslam_tpu/ops/pallas_kernels.py:52",
-        "launches": slam["hamming_launches"], "max_abs_err": path_row["max_abs_err"],
-        "ms": path_row["ms"], "plain_ms": path_row["plain_ms"], "shape": path_row["shape"],
-    }
-    print(json.dumps({"kernels": [kernel]}))
+    ham = hamming_rows[0]  # [4096, 1000]: every tracked frame below 4096 points
+    # level 0 of one frame's pyramid, G = 16: most of the path's launches
+    smp = next(r for r in sampler_rows if r["case"] == "frame level view" and r["level"] == 0
+               and r["groups"] == 16)
+    smp = dict(smp, max_abs_err=max(r["max_abs_err"] for r in sampler_rows if r["on_path"]))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [
+        {"name": "hamming_matrix", "route": "cuda", "source": "textslam_tpu_torch/csrc/hamming.cu",
+         "replaces": "textslam_tpu/ops/pallas_kernels.py:52",
+         "launches": textrun["launches"]["hamming_matrix"],
+         **{k: ham[k] for k in keys}, "shape": ham["shape"],
+         "launches_scene_run": scene["launches"]["hamming_matrix"]},
+        {"name": "grouped_bilinear_stack", "route": "cuda",
+         "source": "textslam_tpu_torch/csrc/patch_sample.cu",
+         "replaces": "textslam_tpu/ops/pallas_kernels.py:193",
+         "launches": textrun["launches"]["grouped_bilinear_stack"],
+         **{k: smp[k] for k in keys}, "launch_ms": smp["launch_ms"],
+         "shape": {"stack": smp["stack"], "groups": smp["groups"], "Q": smp["Q"]}},
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

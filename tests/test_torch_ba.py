@@ -52,7 +52,7 @@ def problems():
     poses[1:, 4:] += rng.normal(0, 0.01, (3, 3)).astype(np.float32)
     rho = np.asarray(jp.rho) * rng.uniform(0.95, 1.05, jp.rho.shape).astype(np.float32)
     jp = jp._replace(poses=jnp.asarray(poses), rho=jnp.asarray(rho))
-    return jp, tba.ba_problem_from_numpy(_to_numpy(jp))
+    return jp, tba.ba_problem_from_numpy(_to_numpy(jp), device="cpu")
 
 
 def _rel_close(a, b, rtol):
@@ -167,7 +167,7 @@ def test_fused_pose_optimize(problems):
         **{k: jnp.asarray(v) for k, v in arrays.items() if k not in ("scene", "fx", "fy", "cx", "cy")},
         scene=jba.SceneObs(**{k: jnp.asarray(v) for k, v in s.items()}),
         text=None, images=None, fx=arrays["fx"], fy=arrays["fy"], cx=arrays["cx"], cy=arrays["cy"])
-    tp = tba.ba_problem_from_numpy(arrays)
+    tp = tba.ba_problem_from_numpy(arrays, device="cpu")
     kw = dict(rounds=2, n_iters=10, huber=float(np.sqrt(5.991)), chi2_gate=16.25)
     pj, inl_j = jtr.fused_pose_optimize(jp, jnp.asarray(s["valid"]), 1 / 1.2, **kw)
     pt, inl_t = ttr.fused_pose_optimize(tp, torch.as_tensor(s["valid"]), 1 / 1.2, **kw)

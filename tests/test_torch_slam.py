@@ -86,7 +86,7 @@ def lockstep(sequence):
         jt.process(jax_frame(i))
         i += 1
     init_frame = i - 1
-    tslam.map = tt.map = slam_map_from_numpy(vars(js.map), tslam.cfg)
+    tslam.map = tt.map = slam_map_from_numpy(vars(js.map), tslam.cfg, device="cpu")
     for k in ("state", "velocity", "last_pose", "prev_pose", "last_kf_frame_id",
               "n_tracked_last_kf"):
         v = getattr(jt, k)
@@ -189,8 +189,11 @@ def test_port_from_scratch(sequence, lockstep, tmp_path):
 
 
 def test_unported_options_raise():
+    slam = TextSLAM(_cfg(tcfg), device="cpu")
     with pytest.raises(NotImplementedError):
-        TextSLAM(dataclasses.replace(_cfg(tcfg), no_text=False), device="cpu")
+        slam.save_checkpoint("unused.npz")
+    with pytest.raises(NotImplementedError):
+        slam.load_checkpoint("unused.npz")
     par = tcfg.ParallelConfig(ba_devices=2)
     with pytest.raises(NotImplementedError):
         TextSLAM(dataclasses.replace(_cfg(tcfg), parallel=par), device="cpu")

@@ -58,3 +58,37 @@ def test_ate_matches_synth():
     # float64 numpy vs float32 JAX alignment
     np.testing.assert_allclose(torch_synth.ate_rmse(ts, est[ts], gt),
                                synth.ate_rmse(ts, est[ts], gt), rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def text_worlds():
+    return synth.TextWorld(seed=0), torch_synth.TextWorld(seed=0)
+
+
+def test_text_world_boxes_match(text_worlds):
+    wj, wt = text_worlds
+    assert len(wt.boxes) == len(wj.boxes) >= 6
+    for (pj, qj, sj), (pt, qt, st) in zip(wj.boxes, wt.boxes):
+        assert (pt, st) == (pj, sj)
+        np.testing.assert_array_equal(qt, qj)
+
+
+@pytest.mark.parametrize("frame", [0, 12, 23])
+def test_text_detections_match(text_worlds, frame):
+    """Detections projected from the ground-truth boxes: the same boxes in
+    the same order, corners to 1e-3 px (float64 numpy vs the JAX rotation
+    matrix in float32), strings and scores exactly."""
+    wj, wt = text_worlds
+    pose = synth.camera_path(24)[frame]
+    dj, dt = wj.detections(pose), wt.detections(pose)
+    assert len(dt) == len(dj) >= 4
+    for a, b in zip(dt, dj):
+        assert (a.text, a.score, a.lang) == (b.text, b.score, b.lang)
+        np.testing.assert_allclose(a.quad, b.quad, atol=1e-3)
+
+
+def test_plane_theta_matches():
+    for pose in synth.camera_path(24)[::7]:
+        for z0 in (2.8, 7.0):
+            np.testing.assert_allclose(torch_synth.plane_theta_in_cam(z0, pose),
+                                       synth.plane_theta_in_cam(z0, pose), rtol=1e-5, atol=1e-7)

@@ -8,8 +8,10 @@ map of each destination pixel, bilinear (INTER_LINEAR) or rounded to the
 nearest pixel (INTER_NEAREST), zero outside the texture.
 tests/test_torch_synth.py holds the two renderers against each other.
 
-Also: `ate_rmse`, the Sim3-aligned ATE of synth.ate_rmse (Horn alignment),
-in numpy.
+Also: the text world (`TextWorld`, `render_text_sequence`, detections
+projected from the ground-truth boxes, `plane_theta_in_cam`) and
+`ate_rmse`, the Sim3-aligned ATE of synth.ate_rmse (Horn alignment), in
+numpy.
 """
 
 from __future__ import annotations
@@ -134,6 +136,74 @@ class PlaneWorld:
         return img
 
 
+TEXT_STRINGS = ["CAFE", "EXIT", "HOTEL", "MARKET", "LIBRARY", "STATION"]
+
+
+def plane_theta_in_cam(z0: float, pose_cw: np.ndarray) -> np.ndarray:
+    """Ground-truth theta of the world plane z = z0 in a camera (theta^T p
+    + 1 = 0 in camera coordinates)."""
+    R = se3_np.qto_matrix(np.asarray(pose_cw[:4], np.float32)).astype(np.float64)
+    t = np.asarray(pose_cw[4:], np.float64)
+    n_c = R @ np.array([0.0, 0.0, 1.0])
+    d_c = np.array([0.0, 0.0, 1.0]) @ (-R.T @ t) - z0
+    return (n_c / d_c).astype(np.float32)
+
+
+class TextWorld(PlaneWorld):
+    """PlaneWorld + rectangular text regions on the planes, with strings
+    (synth.TextWorld: the same RNG calls, so the same boxes)."""
+
+    def __init__(self, seed=0, planes=None, boxes_per_plane=2,
+                 box_px=((140, 220), (70, 110))):
+        super().__init__(seed=seed, planes=planes)
+        rng = np.random.default_rng(seed + 100)
+        self.boxes = []  # (plane_idx, texture rect corners [4, 2], string)
+        si = 0
+        for pi, (z0, s, tex, mask, off) in enumerate(self.planes):
+            ys, xs = np.nonzero(mask)
+            if len(ys) == 0:
+                continue
+            y0, y1, x0, x1 = ys.min(), ys.max(), xs.min(), xs.max()
+            for _ in range(boxes_per_plane):
+                bw = int(rng.uniform(*box_px[0]))
+                bh = int(rng.uniform(*box_px[1]))
+                if x1 - x0 < bw + 40 or y1 - y0 < bh + 40:
+                    continue
+                bx = int(rng.uniform(x0 + 20, x1 - bw - 20))
+                by = int(rng.uniform(y0 + 20, y1 - bh - 20))
+                quad_tex = np.array([[bx, by], [bx + bw, by], [bx + bw, by + bh], [bx, by + bh]],
+                                    np.float32)
+                # unique strings, so a box maps to its ground-truth plane 1:1
+                self.boxes.append((pi, quad_tex, f"{TEXT_STRINGS[si % len(TEXT_STRINGS)]}{si}"))
+                si += 1
+
+    def detections(self, pose_cw: np.ndarray, margin=8.0, K_mat=None, size=None):
+        """The text boxes projected into a camera -> list of TextDetection
+        (boxes behind the camera or not fully inside the image are left out)."""
+        from textslam_tpu_torch.frontend.frame import TextDetection
+
+        Km = K if K_mat is None else K_mat
+        Wc, Hc = (W, H) if size is None else size
+        R = se3_np.qto_matrix(np.asarray(pose_cw[:4], np.float32))
+        t = pose_cw[4:]
+        dets = []
+        for pi, quad_tex, string in self.boxes:
+            z0, s, tex, mask, off = self.planes[pi]
+            th, tw = tex.shape
+            X = (quad_tex[:, 0] - tw / 2) / s + off[0]
+            Y = (quad_tex[:, 1] - th / 2) / s + off[1]
+            pc = np.stack([X, Y, np.full(4, z0)], -1) @ R.T + t
+            if (pc[:, 2] <= 0.1).any():
+                continue
+            uv = np.stack([Km[0, 0] * pc[:, 0] / pc[:, 2] + Km[0, 2],
+                           Km[1, 1] * pc[:, 1] / pc[:, 2] + Km[1, 2]], -1)
+            if not ((uv[:, 0] > margin) & (uv[:, 0] < Wc - margin)
+                    & (uv[:, 1] > margin) & (uv[:, 1] < Hc - margin)).all():
+                continue
+            dets.append(TextDetection(quad=uv.astype(np.float32), text=string, score=0.9))
+        return dets
+
+
 def _qexp(w: np.ndarray) -> np.ndarray:
     w = np.asarray(w, np.float32)
     sq = np.float32((w * w).sum())
@@ -167,6 +237,15 @@ def render_sequence(n_frames=40, seed=0, kind="lateral", K_mat=None, size=None):
     poses = camera_path(n_frames, kind)
     frames = [world.render(p, K_mat=K_mat, size=size) for p in poses]
     return frames, poses
+
+
+def render_text_sequence(n_frames=40, seed=0, kind="lateral", K_mat=None, size=None):
+    """(frames, detections per frame, ground-truth Tcw [N, 7], world)."""
+    world = TextWorld(seed=seed)
+    poses = camera_path(n_frames, kind)
+    frames = [world.render(p, K_mat=K_mat, size=size) for p in poses]
+    dets = [world.detections(p, K_mat=K_mat, size=size) for p in poses]
+    return frames, dets, poses, world
 
 
 def _horn_alignment(P1: np.ndarray, P2: np.ndarray) -> tuple:

@@ -1,10 +1,14 @@
 """textslam_tpu_torch — the PyTorch/CUDA port of textslam_tpu.
 
-Monocular keyframe SLAM with ORB scene points, ported slice by slice from
-the JAX package `textslam_tpu/`, which stays the reference. This slice is the
-scene-only pipeline (`Exp noText`): frame build, descriptor matching on a
-hand-written CUDA Hamming kernel, pose tracking, two-view initialization and
-the windowed point bundle adjustment.
+Monocular keyframe SLAM with ORB scene points and planar text objects,
+ported slice by slice from the JAX package `textslam_tpu/`, which stays the
+reference. Ported: the scene-only pipeline (`Exp noText`) and the text
+pipeline of the default configuration: frame build, descriptor matching on
+a hand-written CUDA Hamming kernel, pose tracking chained with the joint
+scene+text photometric refinement, two-view initialization, the text-object
+lifecycle, and the windowed joint point+text bundle adjustment whose
+photometric rows sample through a hand-written CUDA region sampler. Loop
+closing, checkpointing, the CLI and multi-device paths are not ported yet.
 
 Plain tensor code is PyTorch; every Pallas kernel of the JAX package becomes
 a hand-written Hopper kernel under `csrc/`. The package never imports jax or

@@ -1,12 +1,15 @@
 """Frontend tracking: state machine, matching, pose optimization, KF policy.
 
-Port of textslam_tpu/frontend/tracking.py, scene path:
+Port of textslam_tpu/frontend/tracking.py:
 - SearchFrom3D -> one projection of the whole point pool + a masked Hamming
   match (ops.matching on the CUDA kernel);
-- PoseOptim -> solver.ba with a 1-KF window and chi2 gating rounds;
+- PoseOptim -> solver.ba with a 1-KF window and chi2 gating rounds; with the
+  text frontend on, chained with the joint scene+text pose refinement
+  (frontend.text.fused_frame_chain);
 - SearchForTriangular + CheckTriangular -> one masked match + batched DLT;
 - LocalBundleAdjustment -> solver.ba over the sliding window with frozen
-  out-of-window hosts.
+  out-of-window hosts, joint with the photometric text rows
+  (frontend.text.fused_ba_schedule) when the text frontend is on.
 
 Host Python does the bookkeeping (numpy map); every crossing to the device
 names its dtype (float32 / int64 / bool, descriptors as int32 bits), since
@@ -31,7 +34,7 @@ from ..ops import matching, orb
 from ..solver import ba
 from ..mapper.state import SlamMap, Keyframe
 from ..utils.profiling import phase
-from .frame import Frame, desc_to_dev, ensure_host_kp, packed_kp_dev
+from .frame import Frame, check_device, desc_to_dev, ensure_host_kp, packed_kp_dev
 
 # tracking states
 NOT_INITIALIZED = 0
@@ -225,12 +228,12 @@ def _bool(a, dev):
 
 
 class Tracker:
-    """Synchronous frontend mirroring tracking::Track (scene path)."""
+    """Synchronous frontend mirroring tracking::Track."""
 
-    def __init__(self, cfg: TextSLAMConfig, slam_map: SlamMap, device="cpu"):
+    def __init__(self, cfg: TextSLAMConfig, slam_map: SlamMap, *, device):
         self.cfg = cfg
         self.map = slam_map
-        self.device = torch.device(device)
+        self.device = check_device(device, "Tracker")
         self.state = NOT_INITIALIZED
         self.last_frame: Optional[Frame] = None
         self.init_frame: Optional[Frame] = None
@@ -240,6 +243,7 @@ class Tracker:
         self.prev_pose: Optional[np.ndarray] = None
         self.n_tracked_last_kf = 0
         self.trajectory = []  # (timestamp, Tcw) per frame
+        self.text_frontend = None  # wired by the system when text is on
         self.loop_hook = None  # called with each new keyframe id
 
     # ------------------------------------------------------------------
@@ -320,8 +324,16 @@ class Tracker:
             m.add_observation(kid2, int(idx[i]), pid)
         m.update_covis_on_obs(kid2, m.keyframes[kid2].kp_point)
 
-        # InitBA: KF2 pose + rho (KF1 pose fixed)
+        # text objects are created before the init BA so their thetas can
+        # join it
+        tf = self.text_frontend
+        if tf is not None:
+            tf.on_initialized(f1, f2, kid1, kid2)
+        # InitBA: KF2 pose + rho (KF1 pose fixed), then (unless the thetas
+        # solved jointly inside it) theta-only refinement against KF2
         self._local_ba(window_kids=[kid1, kid2], fix=[kid1], init_ba=True)
+        if tf is not None and not self.cfg.solver.joint_init_ba:
+            tf.refine_init_thetas(kid1, kid2)
         f2.pose = m.kf_pose[kid2].copy()
         self.last_pose = f2.pose.copy()
         self.prev_pose = f1.pose.copy()
@@ -343,6 +355,13 @@ class Tracker:
             kp_valid=frame.kp_valid.copy(),
             kp_point=np.full(n, -1, np.int32),
             obs_good=np.zeros(n, bool),
+            pyr_data=frame.pyr_data,
+            pyr_shapes=frame.pyr_shapes,
+            pyr_dev=frame.pyr_dev,
+            det_quads=(np.stack([d.quad for d in frame.detections]) if frame.detections
+                       else np.zeros((0, 4, 2), np.float32)),
+            det_text=frame.detections,
+            det_object=np.full(len(frame.detections), -1, np.int32),
         )
 
     # ------------------------------------------------------------------
@@ -353,14 +372,26 @@ class Tracker:
             guess = se3_np.compose(self.velocity, self.last_pose).astype(np.float32)
         else:
             guess = self.last_pose.copy()
-        with phase("track.step"):
-            pose, kp_idx, ok, inlier, n_matches = self._fused_track(frame, guess)
+        # with the text frontend on, the whole per-frame device pipeline (track
+        # step + text hook) runs chained with one readback
+        chain = self.text_frontend is not None and frame.pyr_shapes is not None
+        hook = imm_handle = None
+        if chain:
+            (pose, kp_idx, ok, inlier, n_matches), hook, imm_handle = self._chain_frame(
+                frame, guess)
+        else:
+            with phase("track.step"):
+                pose, kp_idx, ok, inlier, n_matches = self._fused_track(frame, guess)
         if n_matches < 10:
             # re-match without the motion model, wider radius
             guess = self.last_pose.copy()
-            with phase("track.step"):
-                pose, kp_idx, ok, inlier, n_matches = self._fused_track(
+            if chain:
+                (pose, kp_idx, ok, inlier, n_matches), hook, imm_handle = self._chain_frame(
                     frame, guess, radius_scale=2.0)
+            else:
+                with phase("track.step"):
+                    pose, kp_idx, ok, inlier, n_matches = self._fused_track(
+                        frame, guess, radius_scale=2.0)
         if n_matches < 10:
             self.state = LOST
             frame.pose = guess
@@ -380,6 +411,10 @@ class Tracker:
         # landmark observation counters
         m.pt_good_obs[good_pids] += 1
         m.pt_bad_obs[pids[ok & ~inlier]] += 1
+
+        # the text hook's host half: counters, maturation, refined pose
+        if chain:
+            frame.pose = self.text_frontend.apply_frame_hook(hook, imm_handle)
 
         self.prev_pose = self.last_pose
         self.last_pose = frame.pose.copy()
@@ -405,9 +440,12 @@ class Tracker:
         return c1 or c2 or c3
 
     def _pose_chi2_gate(self) -> float:
-        """Scene chi2 gate of per-frame pose optimization: with no text rows
-        (the noText slice) the reference always relaxes to chi2Mono + 4."""
-        return self.cfg.solver.chi2_mono_pose_lowtext
+        """Scene chi2 gate of per-frame pose optimization, relaxed to
+        chi2Mono + 4 while the latest text refinement held fewer than 50
+        text rows (always under noText)."""
+        scfg = self.cfg.solver
+        n_text_rows = self.text_frontend.last_text_rows if self.text_frontend is not None else 0
+        return scfg.chi2_mono_pose if n_text_rows >= 50 else scfg.chi2_mono_pose_lowtext
 
     def _narrow_to_local_map(self, frame: Frame, pt_valid: np.ndarray):
         """Local-map cap: narrow the candidates to points hosted in the
@@ -475,6 +513,45 @@ class Tracker:
         return (out[3, :7].astype(np.float32), out[0].astype(np.int64), out[1] > 0.5,
                 out[2] > 0.5, int(out[3, 7]))
 
+    def _chain_frame(self, frame: Frame, guess: np.ndarray, radius_scale: float = 1.0):
+        """Run the chained per-frame pipeline (track step + text hook),
+        unpack its one readback, advance the new-text KLT tracks and
+        dispatch the IMMATURE maturation solve.
+
+        Returns (track tuple, hook tuple, imm_handle): track = (pose1,
+        kp_idx, ok, inlier, n1); hook = (pose2, geo, full, text_rows)."""
+        from .text import fused_frame_chain
+
+        tf = self.text_frontend
+        m = self.map
+        scfg = self.cfg.solver
+        tcfg = self.cfg.text
+        arrays, scalars, kw, P = self._track_step_args(frame, guess, radius_scale)
+        hi = tf.hook_inputs(frame)
+        with phase("track.step"):
+            out = fused_frame_chain(
+                *arrays, *hi["args"], *scalars,
+                tcfg.in_image_margin, tcfg.cos_orientation_min, tcfg.zncc_min,
+                width=kw["width"], height=kw["height"], rounds=kw["rounds"],
+                track_n_iters=kw["n_iters"], chi2_gate=kw["chi2_gate"],
+                levels=tuple(tf.levels), n_iters=scfg.iters_per_level,
+                huber_scene=scfg.huber_scene_pose, huber_text=scfg.huber_text,
+                weight_text=scfg.weight_text,
+            ).cpu().numpy()  # THE per-frame readback
+        R = hi["R"]
+        t = out[: 4 * P].reshape(4, P)
+        pose1 = t[3, :7].astype(np.float32)
+        h = out[4 * P:].reshape(3, R)
+        geo = h[0, : m.n_texts] > 0.5
+        # TextUpdate gates by geo only and targets the pre-refine pose
+        with phase("track.immature"):
+            imm_handle = tf.dispatch_immature(frame, pose1, geo)
+        with phase("track.klt"):
+            tf.track_new_text(frame)
+        track = (pose1, t[0].astype(np.int64), t[1] > 0.5, t[2] > 0.5, int(t[3, 7]))
+        hook = (h[2, :7].astype(np.float32), geo, h[1, : m.n_texts] > 0.5, int(h[2, 7]))
+        return track, hook, imm_handle
+
     # ------------------------------------------------------------------
     # keyframe insertion + local BA
     def _insert_keyframe(self, frame: Frame, tracked_pids, tracked_kps):
@@ -502,6 +579,8 @@ class Tracker:
 
         self.last_kf_frame_id = frame.frame_id
         self.n_tracked_last_kf = len(tracked_pids)
+        if self.text_frontend is not None:
+            self.text_frontend.on_keyframe(frame, kid)
         if self.loop_hook is not None:
             self.loop_hook(kid)
 
@@ -546,18 +625,19 @@ class Tracker:
         if new_pids:
             m.update_covis_on_obs(cur.kid, np.asarray(new_pids))
 
-    def _solve(self, prob: ba.BAProblem, n_iters: int, huber_scene: float) -> ba.LMState:
+    def _solve(self, prob: ba.BAProblem, n_iters: int, huber_scene: float,
+               no_free_poses: bool = False) -> ba.LMState:
         """Windowed BA solve with the config's LM damping schedule."""
         scfg = self.cfg.solver
         return ba.solve_ba(
             prob, n_iters=n_iters, huber_scene=huber_scene,
             lam0=scfg.lm_lambda_init, lam_up=scfg.lm_lambda_up,
             lam_down=scfg.lm_lambda_down, lam_min=scfg.lm_min_lambda,
-            lam_max=scfg.lm_max_lambda)
+            lam_max=scfg.lm_max_lambda, no_free_poses=no_free_poses)
 
     def _local_ba(self, window_kids, fix, init_ba: bool = False):
-        """Windowed scene BA; hosts outside the window are frozen. The
-        init BA (two KFs) runs unweighted with the init Huber, 3 x iters."""
+        """Windowed joint BA; hosts outside the window are frozen. The init
+        BA (two KFs) runs unweighted with the init Huber, 3 x iters."""
         m = self.map
         cam = self.cfg.camera
         scfg = self.cfg.solver
@@ -634,12 +714,61 @@ class Tracker:
         )
         n_it = scfg.iters_per_level * (3 if init_ba else 2)
         huber = scfg.huber_scene_init if init_ba else scfg.huber_scene_pose
-        with phase("ba.solve_scene"):
-            st = self._solve(prob, n_iters=n_it, huber_scene=huber)
-            chi2, _ = ba.scene_chi2(prob._replace(poses=st.poses, rho=st.rho),
-                                    scfg.huber_scene_pose)
-            # ONE packed readback: poses, rho, per-observation chi2
-            packed = torch.cat([st.poses.reshape(-1), st.rho, chi2]).cpu().numpy()
+        # all-poses-fixed problems take the no-free-poses solver path
+        no_free = not pose_free.any()
+
+        # the photometric text rows (joint point+text BA). The init BA stays
+        # scene-only unless joint_init_ba: theta is refined right after it
+        # instead (TextFrontend.refine_init_thetas)
+        tf = self.text_frontend
+        text_part = None
+        if tf is not None and (not init_ba or scfg.joint_init_ba):
+            text_part = tf.ba_text_batches(window_kids, {k: i for i, k in enumerate(window_kids)}, K)
+        fused_inputs = theta_meta = None
+        levels = self.cfg.pyramid.init_ba_levels if init_ba else self.cfg.pyramid.ba_levels
+        F = self.cfg.text.max_features_per_level
+        if text_part is not None:
+            pairs, tids, tid_to_lm = text_part
+            Tn = pad_tier(len(tids), minimum=64)
+            theta = np.zeros((Tn, 3), np.float32)
+            theta[: len(tids)] = m.tx_theta[tids]
+            theta_free = np.zeros(Tn, bool)
+            theta_free[: len(tids)] = [int(m.tx_host[t]) in window_kids for t in tids]
+            theta_meta = (tids, theta_free)
+            prob = prob._replace(theta=_f32(theta, dev), theta_free=_bool(theta_free, dev))
+            with phase("ba.fused_inputs"):
+                fused_inputs = tf.fused_ba_inputs(pairs, tid_to_lm, window_kids, levels, K)
+
+        if fused_inputs is not None:
+            # the whole coarse-to-fine schedule: per-level pair geometry, LM,
+            # text gates, final scene chi2; ONE packed readback
+            from .text import fused_ba_schedule
+
+            fi = fused_inputs
+            with phase("ba.fused_schedule"):
+                packed = fused_ba_schedule(
+                    prob, fi["rows"], fi["pair_quads"], fi["pair_lm"], fi["pair_tgt"],
+                    fi["pair_host"], fi["pair_hiw"], fi["pair_hpose"], fi["feat_uv_lv"],
+                    fi["ref_lv"], fi["fvalid_lv"], fi["imgs_lv"],
+                    cam.fx, cam.fy, cam.cx, cam.cy, levels=levels, n_iters=scfg.iters_per_level,
+                    huber_scene=huber, huber_text=scfg.huber_text,
+                    weight_text=1.0 if init_ba else scfg.weight_text,  # PyrIniBA is unweighted
+                    pair_feat=F, gate=True, no_free_poses=no_free,
+                    lam0=scfg.lm_lambda_init, lam_up=scfg.lm_lambda_up,
+                    lam_down=scfg.lm_lambda_down, lam_min=scfg.lm_min_lambda,
+                    lam_max=scfg.lm_max_lambda).cpu().numpy()
+            gate_outs = [(lv, fi["Np"] * F * 16) for lv in levels]
+        else:
+            with phase("ba.solve_scene"):
+                st = self._solve(prob, n_iters=n_it, huber_scene=huber, no_free_poses=no_free)
+                chi2, _ = ba.scene_chi2(prob._replace(poses=st.poses, rho=st.rho),
+                                        scfg.huber_scene_pose)
+                parts = [st.poses.reshape(-1), st.rho, chi2]
+                if theta_meta is not None:
+                    parts.append(prob.theta.reshape(-1))
+                # ONE packed readback: poses, rho, per-observation chi2
+                packed = torch.cat(parts).cpu().numpy()
+            gate_outs = []
 
         poses = packed[: K * 7].reshape(K, 7)
         for k, kid in enumerate(window_kids):
@@ -647,10 +776,51 @@ class Tracker:
         rho = packed[K * 7: K * 7 + P][: len(upts)]
         m.pt_rho[upts[host_in_window_per_pt]] = rho[host_in_window_per_pt].clip(1e-4, 1e4)
         # chi2 gating -> mark observations bad
-        chi2_px = packed[K * 7 + P:][: len(tgt_l)] / (1.0 if init_ba else scfg.weight_scene ** 2)
+        off = K * 7 + P
+        O_len = scene.tgt.shape[0]
+        chi2_px = packed[off: off + O_len][: len(tgt_l)] / (
+            1.0 if init_ba else scfg.weight_scene ** 2)
+        off += O_len
+        if theta_meta is not None:
+            tids, theta_free = theta_meta
+            theta = packed[off: off + theta_free.shape[0] * 3].reshape(-1, 3)
+            off += theta_free.shape[0] * 3
+            for i, t in enumerate(tids):  # thetas of in-window hosts
+                if theta_free[i] and np.isfinite(theta[i]).all():
+                    m.tx_theta[t] = theta[i]
+        for level, n in gate_outs:
+            block = packed[off: off + n].reshape(-1, 16)
+            self._apply_text_gate(pairs, level, block[: len(pairs["tids"]) * F])
+            off += n
         gate = scfg.chi2_mono_global if len(fix) == len(window_kids) else scfg.chi2_mono_pose
         bad_idx = np.nonzero(chi2_px > gate)[0]
         for kid in np.unique(kf_of_obs[bad_idx]):
             rows = bad_idx[kf_of_obs[bad_idx] == kid]
             m.keyframes[kid].obs_good[kp_of_obs[rows]] = False
         np.add.at(m.pt_bad_obs, point_l[bad_idx], 1)
+
+    def _apply_text_gate(self, pairs, level: int, packed: np.ndarray):
+        """Host half of the text chi2 gate: packed [n_pairs*F, 16] = (|err| 8 |
+        ok 8) rows. A feature observation is bad when any of its 8 normalized
+        sample errors exceeds chi2Text[level]; the whole (KF, object)
+        observation goes bad when more than text_bad_ratio of its features
+        are bad."""
+        m = self.map
+        scfg = self.cfg.solver
+        F = self.cfg.text.max_features_per_level
+        n_pairs = len(pairs["tids"])
+        err = packed[..., :8].reshape(n_pairs, F, 8)
+        ok = packed[..., 8:].reshape(n_pairs, F, 8) > 0.5
+        used = ok.any(-1)  # features contributing at this level
+        bad_feat = ((err > scfg.chi2_text_levels[level]) & ok).any(-1) & used
+        for i, (tid, kid) in enumerate(zip(pairs["tids"], pairs["target_kids"])):
+            fg = m.tx_feat_good.get((kid, tid))
+            if fg is None:
+                continue
+            nf = int(used[i].sum())
+            if nf == 0:
+                continue
+            fg[level][bad_feat[i]] = False
+            if int(bad_feat[i].sum()) / nf > scfg.text_bad_ratio:
+                m.tx_obs_good[(kid, tid)] = False
+                m.tx_bad_obs[tid] += 1

@@ -1,26 +1,35 @@
-"""SoA map state: keyframes, scene points, observations, covisibility.
+"""SoA map state: keyframes, scene points, text objects, observations,
+covisibility. Port of textslam_tpu/mapper/state.py.
 
-Port of textslam_tpu/mapper/state.py for the scene-only slice. The map is
-host-side numpy bookkeeping, as in the JAX package: id allocation,
-observation registries and the covisibility matrix M1 are O(landmarks)
-integer work per keyframe, and every device consumer (matching, BA) gathers
-padded tensors from these pools. Descriptors stay uint32 on the host (the
-JAX package's layout); they become int32 bits on the way to the device.
+The map is host-side numpy bookkeeping, as in the JAX package: id
+allocation, observation registries and the covisibility matrices M1
+(#shared points), M2 (#shared text objects) and M3 (#shared level-0 text
+features) are O(landmarks) integer work per keyframe, and every device
+consumer (matching, BA, the photometric solvers) gathers padded tensors from
+these pools. Descriptors stay uint32 on the host (the JAX package's layout);
+they become int32 bits on the way to the device. A keyframe's packed
+pyramid stays on the device while the keyframe is in the BA window (+8);
+older keyframes keep only the host mirror, uploaded again on demand through
+a small LRU (kf_pyr_dev).
 
-Not in this slice: text-object pools and the M2/M3 text covisibility (text
-slice), loop edges, point fusion and world-point queries (loop closing), the
-native covisibility product and its sharded variant (the numpy product is
-used).
+Not here yet: loop edges, point and text fusion (loop closing), the native
+covisibility product and its sharded variant (the numpy product is used).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
+import torch
 
 from ..config import TextSLAMConfig
+
+# text object states
+TEXT_GOOD = 0
+TEXT_IMMATURE = 1
+TEXT_BAD = 2
 
 
 @dataclasses.dataclass
@@ -39,6 +48,14 @@ class Keyframe:
     # observation registry: keypoint index -> point id (-1 = none)
     kp_point: np.ndarray  # [N] int32
     obs_good: np.ndarray  # [N] bool — per-observation good flag (BA gating)
+    # packed direct pyramid: host mirror (lazy), true extents, device copy
+    pyr_data: Optional[np.ndarray] = None  # [L, H, W, 3] float32
+    pyr_shapes: Optional[np.ndarray] = None  # [L, 2] int32
+    pyr_dev: Optional[torch.Tensor] = None
+    # text detections in this KF
+    det_quads: Optional[np.ndarray] = None  # [D, 4, 2] float32 corners
+    det_text: Optional[list] = None  # [D] TextDetection records
+    det_object: Optional[np.ndarray] = None  # [D] int32 text object id or -1
 
 
 class SlamMap:
@@ -71,10 +88,55 @@ class SlamMap:
         self.pt_n_obs = np.zeros(m.max_points, np.int32)
         self.n_points = 0
 
-        self.saturation_drops: Dict[str, int] = {"keyframes": 0, "points": 0}
+        # text objects (theta in the host KF's frame)
+        self.tx_host = np.full(m.max_texts, -1, np.int32)
+        self.tx_theta = np.zeros((m.max_texts, 3), np.float32)
+        self.tx_state = np.full(m.max_texts, TEXT_BAD, np.int8)
+        self.tx_valid = np.zeros(m.max_texts, bool)
+        self.tx_quad = np.zeros((m.max_texts, 4, 2), np.float32)  # host-KF px
+        self.tx_string: List[str] = ["" for _ in range(m.max_texts)]
+        self.tx_score = np.zeros(m.max_texts, np.float32)
+        # best (smallest) semantic score so far: S_geo + S_mean, argmin over
+        # observations
+        self.tx_sem_score = np.full(m.max_texts, np.inf, np.float32)
+        self.tx_lang = np.zeros(m.max_texts, np.int8)
+        self.tx_good_obs = np.zeros(m.max_texts, np.int32)
+        self.tx_bad_obs = np.zeros(m.max_texts, np.int32)
+        # IMMATURE maturation counter: +1 per FRAME the object is observable
+        self.tx_num_obvs = np.zeros(m.max_texts, np.int32)
+        self.tx_cov = np.full((m.max_texts, 3, 3), np.inf, np.float32)
+        # per-level reference features: level px + 8 reference intensities
+        L = len(cfg.pyramid.theta_levels) + 1
+        F = cfg.text.max_features_per_level
+        self.tx_feat_uv = np.zeros((m.max_texts, L, F, 2), np.float32)
+        self.tx_feat_ref = np.zeros((m.max_texts, L, F, 8), np.float32)
+        self.tx_feat_valid = np.zeros((m.max_texts, L, F), bool)
+        # text observations (kid, tid) -> detection index, with per-KF and
+        # per-object secondary indexes and the dense incidence [T, K]
+        self.tx_obs: Dict[tuple, int] = {}
+        self.tx_obs_by_kid: Dict[int, Dict[int, int]] = {}
+        self.tx_obs_by_tid: Dict[int, Dict[int, int]] = {}
+        self.tx_inc = np.zeros((m.max_texts, m.max_keyframes), bool)
+        # per-observation good flags and per-feature [L, F] good flags:
+        # features that failed the chi2 gate at a KF leave that KF's rows
+        self.tx_obs_good: Dict[tuple, bool] = {}
+        self.tx_feat_good: Dict[tuple, np.ndarray] = {}
+        self.n_texts = 0
 
-        # scene covisibility (#shared points between keyframes)
-        self.M1 = np.zeros((m.max_keyframes, m.max_keyframes), np.int32)
+        # LRU of device uploads of evicted keyframes' pyramids (kf_pyr_dev)
+        self._pyr_lru: Dict[int, torch.Tensor] = {}
+        self._pyr_lru_cap = 4
+        # the device of pyramid uploads (set from the first resident pyramid)
+        self.pyr_device: Optional[torch.device] = None
+
+        self.saturation_drops: Dict[str, int] = {"keyframes": 0, "points": 0, "texts": 0}
+
+        # covisibility: #shared points (M1), text objects (M2), level-0
+        # text features (M3) between keyframes
+        K = m.max_keyframes
+        self.M1 = np.zeros((K, K), np.int32)
+        self.M2 = np.zeros((K, K), np.int32)
+        self.M3 = np.zeros((K, K), np.int32)
 
     # ---------------- pool saturation ----------------
 
@@ -84,7 +146,8 @@ class SlamMap:
         self.saturation_drops[pool] += 1
         if self.saturation_drops[pool] == 1:
             cap = {"keyframes": self.cfg.map.max_keyframes,
-                   "points": self.cfg.map.max_points}[pool]
+                   "points": self.cfg.map.max_points,
+                   "texts": self.cfg.map.max_texts}[pool]
             print(f"[map] {pool} pool saturated (cap {cap}) — further "
                   f"{pool} are dropped and counted (SlamMap.saturation_drops)")
         return -1
@@ -99,7 +162,35 @@ class SlamMap:
         self.keyframes.append(kf)
         self.kf_pose[kid] = pose
         self.kf_valid[kid] = True
+        if kf.pyr_dev is not None:
+            self.pyr_device = kf.pyr_dev.device
+        # bound device pyramid residency to the BA window (+8 for the theta
+        # solvers); older KFs keep only the host mirror
+        keep = self.cfg.solver.ba_window + 8
+        if kid >= keep:
+            old = self.keyframes[kid - keep]
+            if old.pyr_dev is not None:
+                from ..frontend.frame import host_pyr
+
+                host_pyr(old)  # materialize the host mirror once, then drop
+                old.pyr_dev = None
         return kid
+
+    def kf_pyr_dev(self, kf: Keyframe) -> Optional[torch.Tensor]:
+        """Device packed pyramid of a keyframe: the resident copy while the
+        KF is in the retention window, else an upload of the host mirror
+        kept in a small LRU."""
+        if kf.pyr_dev is not None:
+            return kf.pyr_dev
+        if kf.pyr_data is None:
+            return None
+        dev = self._pyr_lru.pop(kf.kid, None)
+        if dev is None:
+            dev = torch.as_tensor(kf.pyr_data, dtype=torch.float32, device=self.pyr_device)
+        self._pyr_lru[kf.kid] = dev  # (re-)insert as most recent
+        while len(self._pyr_lru) > self._pyr_lru_cap:
+            self._pyr_lru.pop(next(iter(self._pyr_lru)))
+        return dev
 
     def nearest_kfs(self, frame_id: int, n: int = 2) -> List[int]:
         """Nearest keyframes by frame id."""
@@ -161,6 +252,57 @@ class SlamMap:
             n_bad += len(pids)
         return n_bad
 
+    def point_world(self, pids: np.ndarray) -> np.ndarray:
+        """xyz world positions: Twr (ray / rho)."""
+        from ..geometry import se3_np
+
+        rho = self.pt_rho[pids].clip(1e-9)
+        p_r = self.pt_ray[pids] / rho[:, None]
+        return se3_np.apply(se3_np.inverse(self.kf_pose[self.pt_host[pids]]), p_r).astype(np.float32)
+
+    # ---------------- text objects ----------------
+
+    def add_text(self, host_kid: int, theta, quad, string: str, score: float, lang: int,
+                 state=TEXT_IMMATURE) -> int:
+        tid = self.n_texts
+        if tid >= self.cfg.map.max_texts:
+            return self._saturate("texts")
+        self.tx_host[tid] = host_kid
+        self.tx_theta[tid] = theta
+        self.tx_state[tid] = state
+        self.tx_valid[tid] = True
+        self.tx_quad[tid] = quad
+        self.tx_string[tid] = string
+        self.tx_score[tid] = score
+        self.tx_lang[tid] = lang
+        self.n_texts += 1
+        return tid
+
+    def add_text_observation(self, kid: int, tid: int, det_idx: int):
+        # incremental M2/M3 before registering: +1 shared object and +the
+        # level-0 feature count for every KF already observing the object
+        if (kid, tid) not in self.tx_obs:
+            n_feat = int(self.tx_feat_valid[tid, 0].sum())
+            for k2 in self.tx_obs_by_tid.get(tid, ()):
+                if k2 != kid:
+                    self.M2[kid, k2] += 1
+                    self.M2[k2, kid] += 1
+                    self.M3[kid, k2] += n_feat
+                    self.M3[k2, kid] += n_feat
+        self.tx_obs[(kid, tid)] = det_idx
+        self.tx_obs_by_kid.setdefault(kid, {})[tid] = det_idx
+        self.tx_obs_by_tid.setdefault(tid, {})[kid] = det_idx
+        self.tx_inc[tid, kid] = True
+        # a fresh observation inherits the object's current feature state
+        self.tx_obs_good[(kid, tid)] = True
+        self.tx_feat_good[(kid, tid)] = self.tx_feat_valid[tid].copy()
+        kf = self.keyframes[kid]
+        if kf.det_object is not None and det_idx < len(kf.det_object):
+            kf.det_object[det_idx] = tid
+
+    def kfs_observing_text(self, tid: int) -> List[int]:
+        return sorted(self.tx_obs_by_tid.get(tid, {}))
+
     # ---------------- covisibility ----------------
 
     def _point_incidence(self) -> np.ndarray:
@@ -198,19 +340,46 @@ class SlamMap:
         n = min(self.n_points, inc.shape[1])
         self.pt_n_obs[:n] = inc[:, :n].sum(0)
 
+    def rebuild_covis_m23(self):
+        """Full M2/M3 recompute as incidence products: M2 = inc inc^T over
+        valid text objects, M3 = (inc w) inc^T with w the objects' level-0
+        feature counts."""
+        K = len(self.keyframes)
+        self.M2[:] = 0
+        self.M3[:] = 0
+        T = self.n_texts
+        if K == 0 or T == 0:
+            return
+        inc = np.zeros((K, T), np.int64)
+        for (k, t) in self.tx_obs:
+            if t < T and self.tx_valid[t]:
+                inc[k, t] = 1
+        w = self.tx_feat_valid[:T, 0].sum(axis=1)
+        for M, prod in ((self.M2, inc @ inc.T), (self.M3, (inc * w[None, :]) @ inc.T)):
+            np.fill_diagonal(prod, 0)
+            M[:K, :K] = prod
+
 
 _MAP_ARRAYS = ("kf_pose", "kf_valid", "pt_host", "pt_ray", "pt_rho", "pt_valid", "pt_bad",
                "pt_desc", "pt_desc_latest", "pt_desc_second", "pt_good_obs", "pt_bad_obs",
-               "pt_n_obs", "M1")
+               "pt_n_obs", "M1", "M2", "M3", "tx_host", "tx_theta", "tx_state", "tx_valid",
+               "tx_quad", "tx_score", "tx_sem_score", "tx_lang", "tx_good_obs", "tx_bad_obs",
+               "tx_num_obvs", "tx_cov", "tx_feat_uv", "tx_feat_ref", "tx_feat_valid", "tx_inc")
 _KF_FIELDS = ("kid", "frame_id", "timestamp", "kp_uv", "kp_level", "kp_angle", "kp_desc",
-              "kp_valid", "kp_point", "obs_good")
+              "kp_valid", "kp_point", "obs_good", "pyr_data", "pyr_shapes", "det_quads",
+              "det_text", "det_object")
 
 
-def slam_map_from_numpy(fields: Mapping, cfg: TextSLAMConfig) -> SlamMap:
-    """Build a port SlamMap from a JAX SlamMap's state (`vars(jax_map)`,
-    arrays as numpy): the scene pools, M1, the observation registry and the
-    keyframe records (each a Keyframe or its vars()). Text fields are
-    ignored. Arrays are copied with the port's dtypes."""
+def slam_map_from_numpy(fields: Mapping, cfg: TextSLAMConfig, *, device) -> SlamMap:
+    """Build a port SlamMap from a JAX SlamMap's state (`vars(jax_map)`):
+    the scene and text pools, M1/M2/M3, the observation registries and the
+    keyframe records (each a Keyframe or its vars()). Arrays are copied with
+    the port's dtypes; a keyframe's device pyramid (`pyr_dev`, any array)
+    becomes a float32 tensor on `device`; detections keep their records
+    (anything with quad / text / score / lang)."""
+    from ..frontend.frame import TextDetection, check_device
+
+    dev = check_device(device, "slam_map_from_numpy")
     m = SlamMap(cfg)
     for name in _MAP_ARRAYS:
         dst = getattr(m, name)
@@ -219,10 +388,31 @@ def slam_map_from_numpy(fields: Mapping, cfg: TextSLAMConfig) -> SlamMap:
             raise ValueError(f"{name}: shape {src.shape} does not match the config's {dst.shape}")
         dst[...] = src
     m.n_points = int(fields["n_points"])
+    m.n_texts = int(fields["n_texts"])
+    m.tx_string = list(fields["tx_string"])
     m.pt_obs = {int(p): {int(k): int(i) for k, i in obs.items()}
                 for p, obs in fields["pt_obs"].items()}
+    m.tx_obs = {(int(k), int(t)): int(d) for (k, t), d in fields["tx_obs"].items()}
+    for name in ("tx_obs_by_kid", "tx_obs_by_tid"):
+        setattr(m, name, {int(a): {int(b): int(d) for b, d in inner.items()}
+                          for a, inner in fields[name].items()})
+    m.tx_obs_good = {(int(k), int(t)): bool(v) for (k, t), v in fields["tx_obs_good"].items()}
+    m.tx_feat_good = {(int(k), int(t)): np.array(v, bool)
+                      for (k, t), v in fields["tx_feat_good"].items()}
+    m.saturation_drops.update(fields.get("saturation_drops", {}))
     for kf in fields["keyframes"]:
         d = kf if isinstance(kf, Mapping) else vars(kf)
-        m.keyframes.append(Keyframe(
-            **{k: (np.array(d[k]) if isinstance(d[k], np.ndarray) else d[k]) for k in _KF_FIELDS}))
+        rec = {k: (np.array(d[k]) if isinstance(d[k], np.ndarray) else d.get(k))
+               for k in _KF_FIELDS}
+        if rec["det_text"] is not None:
+            rec["det_text"] = [TextDetection(quad=np.asarray(t.quad, np.float32), text=t.text,
+                                             score=float(t.score), lang=int(t.lang))
+                               for t in rec["det_text"]]
+        if d.get("pyr_dev") is not None:
+            rec["pyr_dev"] = torch.tensor(np.asarray(d["pyr_dev"]), dtype=torch.float32,
+                                          device=dev)
+            m.pyr_device = dev
+        m.keyframes.append(Keyframe(**rec))
+    if m.pyr_device is None:
+        m.pyr_device = dev
     return m

@@ -194,6 +194,41 @@ def extract_orb(
     return Keypoints(*(torch.cat([o[i] for o in outs]) for i in range(7)))
 
 
+def extract_box_orb(
+    img: torch.Tensor,
+    quads: torch.Tensor,
+    quads_valid: torch.Tensor,
+    n_keep: int = 256,
+    cell: int = 8,
+    threshold: float = 7.0,
+    shrink: float = 3.0,
+) -> Keypoints:
+    """Text-box feature densification + boundary pruning in one pass: the
+    level-0 FAST score map is zeroed outside the union of the detection
+    quads [D, 4, 2] (validity [D]) with their corners pulled `shrink` px
+    toward the centroid, then the per-cell-boosted top-k keeps up to n_keep
+    in-box corners, with IC angle + rBRIEF as in the main pass. Returns a
+    level-0 Keypoints pool of size n_keep."""
+    from . import rasterize
+
+    H, W = img.shape
+    img = img.float()
+    smap = fast.nms3(fast.fast_score_map(img, threshold))
+    inb = fast._border_mask(H, W, HALF_PATCH + 2, img.device)
+    c = quads.mean(dim=1, keepdim=True)  # [D, 1, 2]
+    d = c - quads
+    dn = d / torch.linalg.norm(d, dim=-1, keepdim=True).clamp(min=1e-6)
+    masks = rasterize.quad_mask(quads + shrink * dn, H, W)  # [D, H, W]
+    inbox = (masks & quads_valid[:, None, None]).any(dim=0)
+    smap = torch.where(inbox & inb, smap, torch.zeros_like(smap))
+    uv, sc, val = select_keypoints(smap, n_keep, cell=cell)
+    ang = ic_angle(img, uv)
+    desc = brief_descriptors(gauss_blur7(img), uv, ang)
+    return Keypoints(uv=uv, uv_level=uv,
+                     level=torch.zeros((n_keep,), dtype=torch.int32, device=img.device),
+                     angle=ang, score=sc, desc=desc, valid=val)
+
+
 def pack_keypoints(*kps: Keypoints) -> torch.Tensor:
     """Pack Keypoints pools into one [N, 14] float32 tensor for ONE
     device->host transfer (cols: uv 2, level 1, angle 1, score 1, valid 1,

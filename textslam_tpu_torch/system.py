@@ -1,50 +1,64 @@
 """System façade: the `TextSLAM` object a user drives frame by frame.
 
-Port of textslam_tpu/system.py for the scene-only slice (`Exp noText`):
-construct map + tracker on an explicit device, feed frames, write TUM
-output. With noText the JAX package builds its loop closer but never runs
-it; this port leaves it out until loop closing is ported.
+Port of textslam_tpu/system.py: construct map + tracker (+ the text frontend
+unless `Exp noText`) on an explicit device, feed frames with their text
+detections, write TUM output.
+
+Loop closing is not ported yet. With text on, the JAX package runs its loop
+closer at every keyframe, and the closer returns before doing any work while
+the map holds fewer than `loop.min_kfs_before_loop` keyframes or fewer than
+`loop.min_kfs_between_loops` keyframes have passed since the last loop. This
+port keeps those two gates and raises NotImplementedError at the first
+keyframe that passes them, instead of silently running without loop closing.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
-import torch
 
 from .config import TextSLAMConfig
 from .mapper.state import SlamMap
-from .frontend.frame import build_frame
+from .frontend.frame import TextDetection, build_frame, check_device
 from .frontend.tracking import Tracker, OK
 from .io import trajectory
 
 
 class TextSLAM:
     def __init__(self, cfg: TextSLAMConfig, output_dir: Optional[str] = None, device="cuda"):
-        if not cfg.no_text:
-            raise NotImplementedError(
-                "textslam_tpu_torch runs the scene-only pipeline (no_text=True); "
-                "the text pipeline is not ported yet")
         if cfg.parallel.ba_devices > 1 or cfg.parallel.covis_devices > 1:
             raise NotImplementedError("multi-device BA / covisibility is not ported yet")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"TextSLAM(device={device!r}) needs a CUDA GPU and none is available")
+        self.device = check_device(device, "TextSLAM")
         self.cfg = cfg
         self.map = SlamMap(cfg)
         self.tracker = Tracker(cfg, self.map, device=self.device)
         self.output_dir = output_dir
         self.frame_count = 0
+        if not cfg.no_text:
+            from .frontend.text import TextFrontend
+
+            self.tracker.text_frontend = TextFrontend(cfg, self.map, self.tracker,
+                                                      device=self.device)
+        self.last_loop_kid = -(10 ** 9)
         self.tracker.loop_hook = self._on_keyframe
 
     def _on_keyframe(self, kid: int):
+        lcfg = self.cfg.loop
+        if (not self.cfg.no_text and len(self.map.keyframes) >= lcfg.min_kfs_before_loop
+                and kid - self.last_loop_kid >= lcfg.min_kfs_between_loops):
+            raise NotImplementedError(
+                f"keyframe {kid} passes the loop-closing gates "
+                f"({len(self.map.keyframes)} >= {lcfg.min_kfs_before_loop} keyframes); "
+                "loop closing is not ported yet")
         if self.output_dir:
             self.record_keyframes(os.path.join(self.output_dir, "keyframe_latest.txt"))
 
-    def track_monocular(self, image: np.ndarray, timestamp: float) -> Optional[np.ndarray]:
-        """Track one undistorted grayscale frame; returns Tcw [7] or None."""
+    def track_monocular(self, image: np.ndarray, timestamp: float,
+                        detections: Optional[List[TextDetection]] = None) -> Optional[np.ndarray]:
+        """Track one undistorted grayscale frame with its text detections;
+        returns Tcw [7] or None."""
         from .utils.profiling import phase
 
         with phase("frame.build"):
@@ -53,16 +67,24 @@ class TextSLAM:
                 image,
                 frame_id=self.frame_count,
                 timestamp=timestamp,
+                detections=detections,
                 n_features=(
                     self.cfg.orb.n_features_init
                     if self.tracker.state != OK
                     else self.cfg.orb.n_features
                 ),
+                with_pyramid=not self.cfg.no_text,
                 device=self.device,
             )
         self.frame_count += 1
         ok = self.tracker.process(frame)
         return frame.pose if ok else None
+
+    def save_checkpoint(self, path: str, extra: Optional[dict] = None):
+        raise NotImplementedError("checkpointing is not ported yet")
+
+    def load_checkpoint(self, path: str) -> dict:
+        raise NotImplementedError("checkpointing is not ported yet")
 
     def record_keyframes(self, path: str):
         """Write the keyframe trajectory in TUM format."""
