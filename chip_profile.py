@@ -9,8 +9,12 @@ ground-truth detections) and traces frames [start, end) with
 torch.profiler (CPU + CUDA activities). Prints the card's name and power
 limit, the traced window's host wall time, the summed device kernel time
 and the device's busy share (one stream: kernels do not overlap), the
-kernel launches per frame, the host time in cudaLaunchKernel, and the top
-device kernels by time. Then times whole text runs in turns
+kernel launches per frame, the host time in cudaLaunchKernel, the top
+device kernels by time and the port's own kernels with their device time
+per execution. Before that window it traces 20 calls of the region sampler
+at the path's commonest shape (level 0 of a frame's packed pyramid, G = 16,
+Q = 512) and prints the device operations per call, which must be the one
+kernel. Then times whole text runs in turns
 (deterministic, atomic, atomic, deterministic) with the BA's segment sums
 (solver/ba.py::_segment_sum) in PyTorch's deterministic mode, as the port
 runs them, and as plain index_add_ (CUDA atomics); prints each run's
@@ -25,6 +29,48 @@ import argparse
 import os
 import sys
 import time
+
+
+PORT_KERNELS = ("region_sample_kernel", "hamming_kernel")  # csrc/*.cu kernel names
+
+
+def dev_us(e):
+    """Device microseconds of a profiler event (the attribute's name moved)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_events(prof):
+    import torch
+
+    return [e for e in prof.key_averages()
+            if dev_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def sampler_call_trace(card: str, n: int = 20) -> None:
+    """Device operations of n grouped_bilinear_stack calls on one frame's
+    level 0 with G = 16, Q = 512; fails unless each call ran exactly one
+    operation on the card, the sampler kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import _sampler_pyramids, _sampler_samples, check
+    from textslam_tpu_torch.ops import patch_sample
+
+    imgs = _sampler_pyramids(1)[0][0, :480, :640, :3][None]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    group_k, uv = _sampler_samples(gen, 1, 480, 640, 16, 0)
+    patch_sample.grouped_bilinear_stack(imgs, group_k, uv)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            patch_sample.grouped_bilinear_stack(imgs, group_k, uv)
+        torch.cuda.synchronize()
+    ops = {e.key: (e.count, dev_us(e)) for e in device_events(prof)}
+    print(f"sampler, {n} calls at level 0, G=16, Q=512: device operations "
+          f"{sum(c for c, _ in ops.values()) / n:g} per call; "
+          + "; ".join(f"{k} x{c}, {us / c:.2f} us each" for k, (c, us) in ops.items())
+          + f"  [{card}]")
+    check(len(ops) == 1 and PORT_KERNELS[0] in next(iter(ops)) and
+          next(iter(ops.values()))[0] == n, f"sampler calls ran {ops} on the card")
 
 
 def segment_sum_ab(text_setup, n_frames: int, card: str) -> int:
@@ -82,6 +128,7 @@ def main() -> int:
 
     card = card_line()
     print(card)
+    sampler_call_trace(card)
     slam, frames, dets, _, _ = text_setup(args.frames)
     for i in range(args.start):
         slam.track_monocular(frames[i], float(i), detections=dets[i])
@@ -96,11 +143,7 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     n = args.end - args.start
     rows = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in rows if dev_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     dev_ms = sum(dev_us(e) for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
     launch_host_ms = sum(e.cpu_time_total for e in rows if e.key == "cudaLaunchKernel") / 1e3
@@ -117,13 +160,15 @@ def main() -> int:
         "top device kernels (name | executions | device ms | share of device time):",
     ]
     ranked = sorted(kernels, key=dev_us, reverse=True)
-    ours = [e for e in ranked if "patch_sample_kernel" in e.key or "hamming" in e.key]
-    for e in ranked[:25] + [None] + ours:
-        if e is None:
-            lines.append("the port's own kernels:")
-            continue
+    for e in ranked[:25]:
         lines.append(f"  {e.key[:90]:<90} | {e.count:>7} | {dev_us(e) / 1e3:>9.3f} | "
                      f"{100 * dev_us(e) / 1e3 / dev_ms:>5.2f}%")
+    lines.append("the port's own kernels (name | executions | device ms | share | us per "
+                 "execution):")
+    for e in ranked:
+        if any(k in e.key for k in PORT_KERNELS):
+            lines.append(f"  {e.key[:90]:<90} | {e.count:>7} | {dev_us(e) / 1e3:>9.3f} | "
+                         f"{100 * dev_us(e) / 1e3 / dev_ms:>5.2f}% | {dev_us(e) / e.count:.2f}")
     print("\n".join(lines))
     return segment_sum_ab(text_setup, args.frames, card)
 

@@ -8,17 +8,26 @@ Phases, each of which must pass (any failure exits non-zero):
    (nvidia-smi);
 2. build every kernel of the port from this checkout, one nvcc per source,
    all started together (csrc/hamming.cu, csrc/patch_sample.cu), and print
-   the build time;
+   the build time and ptxas's registers and spills;
 3. hold the Hamming kernel against its plain PyTorch version on random
    descriptors at the main path's shapes (exact equality) and time both with
-   CUDA events;
-4. hold the grouped region sampler against its plain PyTorch version on
+   CUDA events, beside two one-call PyTorch yardsticks (torch.cdist(p=0) on
+   the unpacked bits, a +-1 bf16 matmul), each held exactly equal once;
+4. hold the grouped region sampler (one launch computes the region
+   origins, the mask and the samples) against its plain PyTorch version on
    the images the main path hands it (a frame's packed pyramid levels 0..2
    read in place, and keyframe stacks), at the main path's group counts,
-   with NaN, off-image, beyond-region and last-pixel samples (masks equal,
-   values within 1e-3), and time the kernel, the plain version and the
-   nearest one-call PyTorch equivalent (F.grid_sample over the gathered
-   images, the gather's copy included);
+   with NaN, off-image, beyond-region and last-pixel samples, then on the
+   region cases the kernel computes itself (an all-off-image group, minima
+   on tile boundaries, the last-tile clamp, a width-only and a both-full
+   level, +-inf, a strided group_k view, G = 70,000 past the old grid
+   limit): masks equal, values within 1e-3. For every case it times the
+   wrapper, the launch alone, the device time per launch (a CUDA graph of
+   many launches), regions() alone (the host work the sampler did before
+   each launch when its origins were computed in PyTorch), the plain
+   version and the nearest one-call PyTorch equivalent (F.grid_sample over
+   the gathered images, the gather's copy included), each the median of 5
+   timings taken in turns;
 5. the scene-only pipeline (no_text=True): 40 rendered 640x480 plane-world
    frames (tests/torch_synth.py, numpy only) through TextSLAM(cfg,
    device="cuda") at the full ORB / map / BA-window configuration; checks
@@ -68,6 +77,7 @@ SAMPLER_FRAME_GROUPS = (4, 8, 16, 32)
 SAMPLER_STACKS = ((16, 16), (32, 32))  # (slots, groups)
 SAMPLER_OFF_PATH = ((20, 640), (20, 7))
 SAMPLER_Q = 512
+SAMPLER_BIG_G = 70_000  # past CUDA's 65,535 limit on grid.y, off the path
 SAMPLER_ATOL = 1e-3  # intensities in [0, 255], Sobel values up to ~1,020
 KF_ATE_MAX = 0.012  # the bound tests/test_e2e_scene.py / test_e2e_text.py hold JAX to
 FRAME_ATE_MAX = 0.025
@@ -110,6 +120,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def median_ms(fns, iters: int, reps: int = 5):
+    """{name: median over reps of time_ms(fn, iters)}, the functions taken
+    in turns, so that host-bound calls on a shared host meet the same noise."""
+    import statistics
+
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            times[k].append(time_ms(fn, iters))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def bound(n_bytes: float, n_ops: float):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the 32-bit peak."""
@@ -117,8 +139,20 @@ def bound(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def unpack_bits(d):
+    """[N, 8] int32 descriptor words -> [N, 256] float32 0/1 bits."""
+    import torch
+
+    shifts = torch.arange(32, dtype=torch.int32, device=d.device)
+    return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], 256).float()
+
+
 def compare_hamming(matching, card: str):
-    """Kernel vs plain version at every path shape; exact equality."""
+    """Kernel vs plain version at every path shape; exact equality. Beside
+    them two one-call PyTorch yardsticks the port never calls, each held
+    exactly equal to the kernel at [4096, 1000]: torch.cdist(p=0) on the
+    descriptors unpacked to 0/1 floats (it counts the differing bits), and a
+    bf16 matmul of the +-1 bits (256 - 2 H, exact in bf16)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -134,15 +168,27 @@ def compare_hamming(matching, card: str):
         err = int((got - want).abs().max().item())
         check(torch.equal(got, want), f"hamming kernel != plain at {n1}x{n2} (max err {err})")
         check(int(want.min()) >= 0 and int(want.max()) <= 256, "plain hamming out of range")
+        unpack_ms = time_ms(lambda: (unpack_bits(d1), unpack_bits(d2)), iters=20)
+        b1, b2 = unpack_bits(d1), unpack_bits(d2)
+        s1, s2 = (1 - 2 * b1).bfloat16(), (1 - 2 * b2).bfloat16()
+        if (n1, n2) == HAMMING_SHAPES[0]:
+            check(torch.equal(torch.cdist(b1, b2, p=0).int(), got), "cdist(p=0) != kernel")
+            check(torch.equal(((256 - torch.matmul(s1, s2.T).float()) / 2).int(), got),
+                  "+-1 bf16 matmul != kernel")
         ms = time_ms(lambda: matching.hamming_matrix(d1, d2), iters=20)
         plain_ms = time_ms(lambda: matching.hamming_matrix_plain(d1, d2), iters=5)
+        library_ms = time_ms(lambda: torch.cdist(b1, b2, p=0), iters=5)
+        matmul_ms = time_ms(lambda: torch.matmul(s1, s2.T), iters=20)
         # descriptors read once, the int32 matrix written once; XOR + popcount
         # + add per word pair
         bound_ms, bound_by = bound((n1 + n2) * 32 + n1 * n2 * 4, n1 * n2 * 8 * 3)
         rows.append({"shape": [n1, n2], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                     "bf16_matmul_ms": matmul_ms, "unpack_ms": unpack_ms})
         print(f"hamming {n1}x{n2}: equal, max_abs_err {err}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+              f"plain {plain_ms:.4f} ms, cdist(p=0) on 0/1 floats {library_ms:.4f} ms, "
+              f"+-1 bf16 matmul {matmul_ms:.4f} ms (unpacking both to bits {unpack_ms:.4f} ms, "
+              f"not in either), bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
     return rows
 
 
@@ -176,7 +222,7 @@ def _sampler_stack(pyrs, level: int, n_slots: int):
     return st
 
 
-def _sampler_samples(gen, K, H, W, G, level):
+def _sampler_samples(gen, K, H, W, G, level, Q=SAMPLER_Q):
     """G groups of Q clustered samples (one text box per group, 64 features
     x the 8-sample pattern) on images 0..K-1, plus the edge cases: a NaN
     projection, an off-image sample, a sample beyond its region and samples
@@ -191,8 +237,8 @@ def _sampler_samples(gen, K, H, W, G, level):
     x0 = torch.rand((G, 1), device=dev, generator=gen) * (W - bw - 4) + 2
     y0 = torch.rand((G, 1), device=dev, generator=gen) * (H - bh - 4) + 2
     x0[-1], y0[-1] = W - 1 - bw[-1], H - 1 - bh[-1]  # the last box in the bottom-right corner
-    u = x0 + torch.rand((G, SAMPLER_Q), device=dev, generator=gen) * bw
-    v = y0 + torch.rand((G, SAMPLER_Q), device=dev, generator=gen) * bh
+    u = x0 + torch.rand((G, Q), device=dev, generator=gen) * bw
+    v = y0 + torch.rand((G, Q), device=dev, generator=gen) * bh
     uv = torch.stack([u, v], dim=-1).contiguous()
     uv[0, 0] = torch.tensor([float("nan"), float("nan")])  # broken projection
     uv[0, 1] = torch.tensor([-3.0, 5.0])  # off-image
@@ -204,8 +250,8 @@ def _sampler_samples(gen, K, H, W, G, level):
 
 
 def _sampler_bytes(patch_sample, imgs, group_k, uv):
-    """Bytes the sampler must move on these inputs: uv and the mask read,
-    the samples written, meta read, and each distinct corner pixel's 3
+    """Bytes the sampler must move on these inputs: uv and group_k read,
+    the samples and the mask written, and each distinct corner pixel's 3
     channels read once."""
     import torch
 
@@ -222,46 +268,157 @@ def _sampler_bytes(patch_sample, imgs, group_k, uv):
             corners.append(((k[:, None] * H + y) * W + x)[ok])
     n_pix = int(torch.unique(torch.cat(corners)).numel())
     G, Q = mask.shape
-    return G * Q * (2 * 4 + 1 + C * 4) + G * 12 + n_pix * C * 4, G * Q * C * 12
+    return G * Q * (2 * 4 + 1 + C * 4) + G * 8 + n_pix * C * 4, G * Q * C * 12
 
 
-def _sampler_cases(pyrs):
-    """(label, on_path, level, imgs, G) for every sampler case."""
-    for level in SAMPLER_LEVELS:
-        H, W = 480 >> level, 640 >> level
-        view = pyrs[0][level, :H, :W, :3][None]  # in place: row stride 640 x 3
-        for G in SAMPLER_FRAME_GROUPS:
-            yield "frame level view", True, level, view, G
-        for slots, G in SAMPLER_STACKS:
-            yield f"{slots}-slot KF stack", True, level, _sampler_stack(pyrs, level, slots), G
-        for slots, G in SAMPLER_OFF_PATH:
-            yield f"{slots}-slot KF stack, off the path", False, level, \
-                _sampler_stack(pyrs, level, slots), G
+def _sampler_cases(pyrs, gen):
+    """(label, on_path, level, imgs, group_k, uv, expect) for every sampler
+    case: the path's images and group counts first, then the region cases
+    the kernel computes itself. `expect(patch_sample, imgs, group_k, uv,
+    mask)` returns what a case must show, beside the masks-equal /
+    values-close check every case gets."""
+    import torch
+
+    def view(level):  # one frame's packed pyramid level, read in place
+        return pyrs[0][level, :480 >> level, :640 >> level, :3][None]
+
+    def cases():
+        for level in SAMPLER_LEVELS:
+            for G in SAMPLER_FRAME_GROUPS:
+                yield "frame level view", True, level, view(level), G
+            for slots, G in SAMPLER_STACKS:
+                yield f"{slots}-slot KF stack", True, level, _sampler_stack(pyrs, level, slots), G
+            for slots, G in SAMPLER_OFF_PATH:
+                yield f"{slots}-slot KF stack, off the path", False, level, \
+                    _sampler_stack(pyrs, level, slots), G
+
+    def edge_expect(patch_sample, imgs, group_k, uv, mask):
+        return [(not bool(mask[0, 0]) and not bool(mask[0, 1]), "NaN / off-image samples kept"),
+                (bool(mask[-1, :3].all()), "last-pixel / last-row / last-column samples masked")]
+
+    for label, on_path, level, imgs, G in cases():
+        K, H, W, _ = imgs.shape
+        yield (label, on_path, level, imgs, *_sampler_samples(gen, K, H, W, G, level),
+               edge_expect)
+
+    def origins(patch_sample, imgs, group_k, uv):
+        return patch_sample.regions(imgs, group_k, uv, 160, 384)[1][:, 1:].tolist()
+
+    def samples(level, G, K=1):
+        return _sampler_samples(gen, K, 480 >> level, 640 >> level, G, level)
+
+    # a group with no in-image sample (NaN, left of and below the image)
+    gk, uv = samples(0, 16)
+    uv[1, 0::3] = float("nan")
+    uv[1, 1::3] = torch.tensor([-3.0, 5.0])
+    uv[1, 2::3] = torch.tensor([700.0, 500.0])
+    yield "all-off-image group", True, 0, view(0), gk, uv, \
+        lambda ps, im, k, uv, m: [(not bool(m[1].any()), "an off-image group kept samples")]
+
+    # minima exactly on and just below a 128-px / 8-row tile boundary, and
+    # samples on and just past the region's last column
+    gk, uv = samples(0, 16)
+    for g, c, lo in ((1, 0, 128.0), (2, 0, 127.99998), (3, 1, 8.0), (4, 1, 7.9999995)):
+        uv[g, :, c] = lo + (uv[g, :, c] - uv[g, :, c].min())  # the minimum becomes lo exactly
+        uv[g, 0, c] = lo
+    uv[1, 1, 0] = 128.0 + 383  # ox + RW - 1: kept
+    uv[1, 2, 0] = float(torch.nextafter(torch.tensor(511.0), torch.tensor(512.0)))  # masked
+    yield "tile-boundary minima", True, 0, view(0), gk, uv, \
+        lambda ps, im, k, uv, m: [
+            ([o[1] for o in origins(ps, im, k, uv)[1:3]] == [128, 0], "ox at u = 128 / 127.99998"),
+            ([o[0] for o in origins(ps, im, k, uv)[3:5]] == [8, 0], "oy at v = 8 / 7.9999995"),
+            (bool(m[1, 1]) and not bool(m[1, 2]), "the region's last column")]
+
+    # a box in the bottom-right corner: origins clamp to the last tile
+    gk, uv = samples(0, 16)
+    uv[1, :, 0] = 520.0 + (uv[1, :, 0] - uv[1, :, 0].min()).clamp(max=119.0)
+    uv[1, :, 1] = 330.0 + (uv[1, :, 1] - uv[1, :, 1].min()).clamp(max=149.0)
+    yield "last-tile clamp", True, 0, view(0), gk, uv, \
+        lambda ps, im, k, uv, m: [(origins(ps, im, k, uv)[1] == [480 - 160, 640 - 384],
+                                   "origins of the corner box: (H8 - RH, W128 - RW)")]
+
+    # level 1 (320 px -> W128 = 384): only the width is full; samples
+    # across the width
+    gk, uv = samples(1, 16)
+    uv[2:, 3:, 0] = torch.rand((14, SAMPLER_Q - 3), device="cuda", generator=gen) * 180 + 139
+    yield "width-only full level", True, 1, view(1), gk, uv, \
+        lambda ps, im, k, uv, m: [(ps.launch_args(im, k, uv)[-2:] == (0, 1), "full flags"),
+                                  (all(o[1] == 0 for o in origins(ps, im, k, uv)), "ox = 0")]
+
+    # level 3 (80 x 60 -> 128 x 64): both full
+    gk, uv = samples(3, 16)
+    yield "both-full level", True, 3, view(3), gk, uv, \
+        lambda ps, im, k, uv, m: [(ps.launch_args(im, k, uv)[-2:] == (1, 1), "full flags")]
+
+    # +-inf coordinates; group 3 has nothing else
+    gk, uv = samples(0, 16)
+    inf = float("inf")
+    uv[1, 0], uv[1, 1] = torch.tensor([inf, 5.0]), torch.tensor([-inf, 5.0])
+    uv[2, 0], uv[2, 1] = torch.tensor([5.0, inf]), torch.tensor([5.0, -inf])
+    uv[3, 0::2], uv[3, 1::2] = torch.tensor([inf, -inf]), torch.tensor([-inf, inf])
+    yield "+-inf coordinates", True, 0, view(0), gk, uv, \
+        lambda ps, im, k, uv, m: [(not bool(m[1, :2].any() or m[2, :2].any() or m[3].any()),
+                                   "non-finite samples kept")]
+
+    # the strided image-index view solver/ba.py::_sample_text_values passes
+    stack = _sampler_stack(pyrs, 0, 16)
+    gk, uv = _sampler_samples(gen, 16, 480, 640, 16, 0)
+    gk = gk.repeat_interleave(64).reshape(16, 64)[:, 0]
+    yield "strided group_k view (16-slot KF stack)", True, 0, stack, gk, uv, \
+        lambda ps, im, k, uv, m: [(k.stride(0) == 64 and not k.is_contiguous(),
+                                   "group_k is a strided view")]
+
+    # past the old 65,535-group grid limit
+    G = SAMPLER_BIG_G
+    gk, uv = _sampler_samples(gen, 20, 60, 80, G, 3, Q=8)
+    yield f"G = {G}, Q = 8 (20-slot KF stack), off the path", False, 3, \
+        _sampler_stack(pyrs, 3, 20), gk, uv, lambda ps, im, k, uv, m: [(m.shape == (G, 8), "shape")]
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Device milliseconds per call: CUDA events around replays of a CUDA
+    graph that captured n calls (no host work between the launches)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = time_ms(graph.replay, iters=10) / n
+    del graph
+    return ms
 
 
 def compare_sampler(patch_sample, card: str):
-    """Kernel vs plain version on the inputs the main path hands the kernel:
-    masks equal, values within SAMPLER_ATOL; times of kernel, plain and
-    F.grid_sample."""
+    """Kernel vs plain version on the inputs the main path hands the kernel
+    and on the region cases it computes itself: masks equal, values within
+    SAMPLER_ATOL; times of the wrapper, the kernel's device time, the plain
+    version, regions() alone (the host work the sampler did before its
+    origins moved into the kernel) and F.grid_sample."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     pyrs = _sampler_pyramids()
     rows = []
-    for label, on_path, level, imgs, G in _sampler_cases(pyrs):
+    for label, on_path, level, imgs, group_k, uv, expect in _sampler_cases(pyrs, gen):
         K, H, W, _ = imgs.shape
-        group_k, uv = _sampler_samples(gen, K, H, W, G, level)
+        G, Q = uv.shape[:2]
         vals, mask = patch_sample.grouped_bilinear_stack(imgs, group_k, uv)
         pv, pm = patch_sample.grouped_bilinear_stack_plain(imgs, group_k, uv)
         torch.cuda.synchronize()
-        where = f"{label} level {level} {list(imgs.shape)} G={G}"
+        where = f"{label}, level {level} {list(imgs.shape)} G={G} Q={Q}"
         check(torch.equal(mask, pm), f"sampler masks differ: {where}")
         check(bool(torch.isfinite(vals).all()), f"non-finite sampler values: {where}")
         err = float((vals - pv).abs().max())
         check(err <= SAMPLER_ATOL, f"sampler kernel vs plain max err {err}: {where}")
-        check(not bool(mask[0, 0]) and not bool(mask[0, 1]), "NaN / off-image samples kept")
-        check(bool(mask[-1, :3].all()), "last-pixel / last-row / last-column samples masked")
+        for ok, what in expect(patch_sample, imgs, group_k, uv, mask):
+            check(ok, f"sampler case does not show what it is for ({what}): {where}")
         grid = torch.stack([uv[..., 0] / (W - 1) * 2 - 1, uv[..., 1] / (H - 1) * 2 - 1],
                            dim=-1)[:, :, None, :]
 
@@ -269,24 +426,34 @@ def compare_sampler(patch_sample, card: str):
             return F.grid_sample(imgs.index_select(0, group_k).permute(0, 3, 1, 2), grid,
                                  mode="bilinear", align_corners=True)
 
-        ms = time_ms(lambda: patch_sample.grouped_bilinear_stack(imgs, group_k, uv), iters=50)
-        # the kernel launch alone, on the wrapper's precomputed regions
-        uv_c, meta, rmask, RH, RW = patch_sample.regions(imgs, group_k, uv, 160, 384)
-        launch_ms = time_ms(lambda: patch_sample._launch(imgs, meta, uv_c, rmask, RH, RW),
-                            iters=200)
-        plain_ms = time_ms(lambda: patch_sample.grouped_bilinear_stack_plain(imgs, group_k, uv),
-                           iters=20)
-        library_ms = time_ms(library, iters=20)
+        def wrapper():
+            return patch_sample.grouped_bilinear_stack(imgs, group_k, uv)
+
+        args = patch_sample.launch_args(imgs, group_k, uv)
+        t = median_ms({
+            "ms": wrapper,
+            # the launch alone, into preallocated outputs
+            "launch_ms": lambda: patch_sample._launch(imgs, group_k, uv, vals, mask, args),
+            "regions_ms": lambda: patch_sample.regions(imgs, group_k, uv, 160, 384),
+            "plain_ms": lambda: patch_sample.grouped_bilinear_stack_plain(imgs, group_k, uv),
+            "library_ms": library}, iters=20)
+        ms, launch_ms, regions_ms, plain_ms, library_ms = (
+            t[k] for k in ("ms", "launch_ms", "regions_ms", "plain_ms", "library_ms"))
+        dev_ms = device_ms(wrapper)
         bound_ms, bound_by = bound(*_sampler_bytes(patch_sample, imgs, group_k, uv))
         rows.append({"case": label, "on_path": on_path, "level": level, "stack": list(imgs.shape),
-                     "row_stride": imgs.stride(1), "groups": G, "Q": SAMPLER_Q,
-                     "max_abs_err": err, "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"sampler {where} (row stride {imgs.stride(1)}) Q={SAMPLER_Q}: masks equal, "
-              f"max_abs_err {err:.2e}, wrapper {ms:.4f} ms (origins, mask, launch), "
-              f"kernel launch alone {launch_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, grid_sample incl. gather copy {library_ms:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by})  [{card}]")
+                     "row_stride": imgs.stride(1), "groups": G, "Q": Q, "max_abs_err": err,
+                     "ms": ms, "launch_ms": launch_ms, "device_ms": dev_ms,
+                     "regions_ms": regions_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"sampler {where} (row stride {imgs.stride(1)}): masks equal, max_abs_err "
+              f"{err:.2e}, wrapper {ms:.4f} ms, launch alone {launch_ms:.4f} ms, device "
+              f"{dev_ms:.5f} ms per launch (CUDA graph), regions() alone {regions_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, grid_sample incl. gather copy {library_ms:.4f} ms "
+              f"(wrapper / grid_sample {ms / library_ms:.2f}), bound {bound_ms:.5f} ms "
+              f"({bound_by})  [{card}]")
+    del pyrs
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -581,6 +748,10 @@ def main() -> int:
         libs = list(ex.map(cuda_lib.build, names))
     print(f"built {[os.path.relpath(p, root) for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    for lib in libs:  # ptxas -v: registers, shared memory and spills of each kernel
+        with open(lib + ".log") as f:
+            print("\n".join(f"  {os.path.basename(lib)}: {line.strip()}" for line in f
+                            if "ptxas info" in line or "spill" in line))
 
     hamming_rows = compare_hamming(matching, card)
     sampler_rows = compare_sampler(patch_sample, card)
@@ -591,19 +762,24 @@ def main() -> int:
     # level 0 of one frame's pyramid, G = 16: most of the path's launches
     smp = next(r for r in sampler_rows if r["case"] == "frame level view" and r["level"] == 0
                and r["groups"] == 16)
-    smp = dict(smp, max_abs_err=max(r["max_abs_err"] for r in sampler_rows if r["on_path"]))
+    smp = dict(smp, max_abs_err=max(r["max_abs_err"] for r in sampler_rows))
+    path = [r for r in sampler_rows if r["on_path"]]
+    print(f"sampler wrapper / grid_sample on the path: G=16 level 0 "
+          f"{smp['ms'] / smp['library_ms']:.2f}, worst "
+          f"{max(r['ms'] / r['library_ms'] for r in path):.2f} over {len(path)} cases  [{card}]")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "hamming_matrix", "route": "cuda", "source": "textslam_tpu_torch/csrc/hamming.cu",
          "replaces": "textslam_tpu/ops/pallas_kernels.py:52",
          "launches": textrun["launches"]["hamming_matrix"],
-         **{k: ham[k] for k in keys}, "shape": ham["shape"],
-         "launches_scene_run": scene["launches"]["hamming_matrix"]},
+         **{k: ham[k] for k in keys}, "bf16_matmul_ms": ham["bf16_matmul_ms"],
+         "shape": ham["shape"], "launches_scene_run": scene["launches"]["hamming_matrix"]},
         {"name": "grouped_bilinear_stack", "route": "cuda",
          "source": "textslam_tpu_torch/csrc/patch_sample.cu",
          "replaces": "textslam_tpu/ops/pallas_kernels.py:193",
          "launches": textrun["launches"]["grouped_bilinear_stack"],
-         **{k: smp[k] for k in keys}, "launch_ms": smp["launch_ms"],
+         **{k: smp[k] for k in keys},
+         **{k: smp[k] for k in ("launch_ms", "device_ms", "regions_ms")},
          "shape": {"stack": smp["stack"], "groups": smp["groups"], "Q": smp["Q"]}},
     ]
     print(json.dumps({"kernels": kernels}))

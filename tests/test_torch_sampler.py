@@ -23,7 +23,7 @@ import jax.numpy as jnp
 from textslam_tpu.ops import pallas_kernels as pk
 from textslam_tpu.ops.interp import bilinear_stack as jbilinear_stack
 from textslam_tpu.solver import ba as jba
-from textslam_tpu_torch.ops import patch_sample
+from textslam_tpu_torch.ops import cuda_lib, patch_sample
 from textslam_tpu_torch.solver import ba as tba
 
 torch.set_num_threads(2)
@@ -57,6 +57,65 @@ def _check_equal(jv, jm, tv, tm):
     assert float(np.abs(tv[~tm]).max(initial=0.0)) == 0.0
 
 
+def _clusters(rng, G, Q, H, W, s):
+    """G clusters of Q samples, each within +-s of a centre inside the image."""
+    cx = rng.uniform(s + 2, W - s - 2, (G, 1))
+    cy = rng.uniform(s + 2, H - s - 2, (G, 1))
+    return np.stack([cx + rng.uniform(-s, s, (G, Q)), cy + rng.uniform(-s, s, (G, Q))], -1)
+
+
+def _uv_all_off_image(rng, G, Q, H, W):
+    """Group 1 has no in-image sample (NaN, left of and below the image)."""
+    uv = _clusters(rng, G, Q, H, W, 8.0)
+    uv[1, 0::3] = np.nan
+    uv[1, 1::3] = [-2.0, 5.0]
+    uv[1, 2::3] = [W + 1.0, H + 1.0]
+    return uv
+
+
+def _uv_tile_boundary(rng, G, Q, H, W):
+    """Minima exactly on and just below a 128-px / 8-row tile boundary, and
+    samples on and just past a region's last column."""
+    uv = np.stack([rng.uniform(130, 300, (G, Q)), rng.uniform(16, 30, (G, Q))], -1)
+    uv[0, 0, 0] = 128.0  # ox = 128
+    uv[0, 1, 0] = 383.0  # ox + RW - 1: kept
+    uv[0, 2, 0] = np.nextafter(np.float32(383.0), np.float32(400.0))  # just past: masked
+    uv[1, 0, 0] = 127.99998  # ox = 0
+    uv[2, 0, 1] = 8.0  # oy = 8
+    uv[3, 0, 1] = 7.9999995  # oy = 0
+    return uv
+
+
+def _uv_last_tile(rng, G, Q, H, W):
+    """A box in the bottom-right corner: both origins clamp to the last
+    tile (oy = H8 - RH, ox = W128 - RW); the last pixel exactly."""
+    uv = np.stack([rng.uniform(520, W - 1, (G, Q)), rng.uniform(330, H - 1, (G, Q))], -1)
+    uv[0, 0] = [W - 1, H - 1]
+    return uv
+
+
+def _uv_width_only_full(rng, G, Q, H, W):
+    """A full-width level (W128 <= region_w, H8 > region_h): samples across
+    the width with min u > 128 still take ox = 0; rows snap to oy = 40."""
+    uv = np.stack([rng.uniform(140, W - 1, (G, Q)), rng.uniform(40.5, 100, (G, Q))], -1)
+    uv[:, 0, 1] = 40.5
+    uv[0, 1, 0] = W - 1  # the pad column is read with weight 0
+    return uv
+
+
+def _uv_inf(rng, G, Q, H, W):
+    """+-inf coordinates (nan_to_num: +-1e6, off the image); group 2 has
+    nothing else."""
+    uv = _clusters(rng, G, Q, H, W, 8.0)
+    uv[0, 0] = [np.inf, 5.0]
+    uv[0, 1] = [-np.inf, 5.0]
+    uv[1, 2] = [10.0, np.inf]
+    uv[1, 3] = [10.0, -np.inf]
+    uv[2, 0::2] = [np.inf, -np.inf]
+    uv[2, 1::2] = [-np.inf, np.inf]
+    return uv
+
+
 CASES = {
     # clustered samples with a region smaller than the level, plus an
     # off-image sample, a NaN projection and samples beyond the region
@@ -70,6 +129,21 @@ CASES = {
     # a full-width level (W128 > W): the pad column is read with weight 0
     "full_width": dict(shape=(2, 240, 320, 3), G=4, Q=24, region=(160, 384), spread=20.0,
                        edge=True),
+    # the region cases the kernel computes itself, each with the origins
+    # (oy, ox) it must give: a group without any in-image sample
+    "all_off_image": dict(shape=(2, 64, 96, 3), G=3, Q=16, region=(32, 64), make=_uv_all_off_image,
+                          origins={1: (0, 0)}),
+    # minima on / below tile boundaries (W128 = 512, RW = 256; RH = 16)
+    "tile_boundary": dict(shape=(2, 40, 400, 3), G=4, Q=16, region=(16, 256), make=_uv_tile_boundary,
+                          origins={0: (16, 128), 1: (16, 0), 2: (8, 128), 3: (0, 128)}),
+    # 640x480 level 0, both origins clamped to the last tile
+    "last_tile_clamp": dict(shape=(1, 480, 640, 3), G=2, Q=12, region=(160, 384), make=_uv_last_tile,
+                            origins={0: (320, 256), 1: (320, 256)}),
+    # 640x480 level 1: only the width is full
+    "width_only_full": dict(shape=(2, 240, 320, 3), G=3, Q=24, region=(160, 384),
+                            make=_uv_width_only_full, origins={0: (40, 0), 1: (40, 0), 2: (40, 0)}),
+    "inf": dict(shape=(2, 64, 96, 3), G=3, Q=16, region=(32, 64), make=_uv_inf,
+                origins={2: (0, 0)}),
 }
 
 
@@ -81,15 +155,14 @@ def test_plain_matches_pallas_interpret(case, interpret_pallas):
     imgs = rng.uniform(0, 255, (K, H, W, C)).astype(np.float32)
     G, Q = c["G"], c["Q"]
     group_k = rng.integers(0, K, G).astype(np.int32)
-    if c["spread"] is None:
+    if "make" in c:
+        uv = c["make"](rng, G, Q, H, W)
+    elif c["spread"] is None:
         uv = np.stack([rng.uniform(W - 60, W - 1, (G, Q)), rng.uniform(H - 60, H - 1, (G, Q))], -1)
     else:
-        s = c["spread"]
-        cx = rng.uniform(s + 2, W - s - 2, (G, 1))
-        cy = rng.uniform(s + 2, H - s - 2, (G, 1))
-        uv = np.stack([cx + rng.uniform(-s, s, (G, Q)), cy + rng.uniform(-s, s, (G, Q))], -1)
+        uv = _clusters(rng, G, Q, H, W, c["spread"])
     uv = uv.astype(np.float32)
-    if c["edge"]:
+    if c.get("edge"):
         uv[0, 0] = [-5.0, 3.0]  # off-image
         uv[1, 1] = [np.nan, np.nan]  # broken projection
         uv[0, 2] = [W - 1, H - 1]  # the last pixel exactly
@@ -98,6 +171,48 @@ def test_plain_matches_pallas_interpret(case, interpret_pallas):
         uv[0, 4] = [uv[0, 5, 0] + 300.0, uv[0, 5, 1]]  # beyond the region
     rh, rw = c["region"]
     _check_equal(*_both(imgs, group_k, uv, region_h=rh, region_w=rw))
+    _, meta, mask, _, _ = patch_sample.regions(torch.from_numpy(imgs), torch.from_numpy(group_k).long(),
+                                               torch.from_numpy(uv), rh, rw)
+    for g, origin in c.get("origins", {}).items():
+        assert tuple(meta[g, 1:].tolist()) == origin, (case, g)
+    if case in ("all_off_image", "inf"):
+        assert not mask[max(c["origins"])].any()
+
+
+# 640x480 pyramid levels 0-3 at the 160x384 region:
+# (RH, RW, H8, W128, full_h, full_w)
+LEVEL_ARGS = {0: (160, 384, 480, 640, 0, 0), 1: (160, 384, 240, 384, 0, 1),
+              2: (120, 256, 120, 256, 1, 1), 3: (64, 128, 64, 128, 1, 1)}
+
+
+@pytest.mark.parametrize("level", sorted(LEVEL_ARGS))
+def test_launch_args_levels(level):
+    """The kernel's scalar arguments for a level of a frame's packed
+    pyramid read in place, with the strided group_k view that
+    _sample_text_values passes (tgt.reshape(G, pair_feat)[:, 0]); the plain
+    version gives the same samples for that view and its copy."""
+    H, W = 480 >> level, 640 >> level
+    packed = torch.from_numpy(np.random.default_rng(level).uniform(
+        0, 255, (4, 480, 640, 3)).astype(np.float32))
+    imgs = packed[level, :H, :W][None]
+    G, F, S = 5, 64, 8
+    tgt = torch.zeros(G * F, dtype=torch.int64)
+    group_k = tgt.reshape(G, F)[:, 0]
+    uv = torch.from_numpy(np.random.default_rng(9).uniform(
+        0, [W - 1, H - 1], (G, F * S, 2)).astype(np.float32))
+    a = patch_sample.launch_args(imgs, group_k, uv)
+    assert (a.RH, a.RW, a.H8, a.W128) == patch_sample.region_shape(H, W, 160, 384)
+    assert (a.RH, a.RW, a.H8, a.W128, a.full_h, a.full_w) == LEVEL_ARGS[level]
+    assert (a.img_stride, a.row_stride, a.k_stride) == (imgs.stride(0), 640 * 3, F)
+    assert (a.G, a.Q, a.H, a.W) == (G, F * S, H, W)
+    # the C entry point takes 5 pointers, these arguments packed as its
+    # 64-byte LaunchArgs struct, and the stream
+    assert len(cuda_lib.SIGNATURES[("patch_sample", "patch_sample_launch")]) == 5 + 1 + 1
+    assert patch_sample.PACK.size == 64
+    assert patch_sample.PACK.unpack(patch_sample.PACK.pack(*a)) == tuple(a)
+    v1, m1 = patch_sample.grouped_bilinear_stack(imgs, group_k, uv)
+    v2, m2 = patch_sample.grouped_bilinear_stack(imgs.contiguous(), group_k.contiguous(), uv)
+    assert torch.equal(m1, m2) and torch.equal(v1, v2)
 
 
 def test_kernel_layout_read_in_place():

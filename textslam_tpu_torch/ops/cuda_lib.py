@@ -1,9 +1,10 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build, load and launch the port's hand-written CUDA kernels.
 
 Each `csrc/<name>.cu` compiles with nvcc into a shared library with a plain
 C interface, loaded through ctypes (no PyTorch headers, so a build takes
 seconds). The library lands in `textslam_tpu_torch/_build/`, keyed by a hash
-of the source and the nvcc flags, and is built at first use — never at
+of the source and the nvcc flags, with nvcc's report (ptxas registers and
+spills) beside it as `<library>.log`. It is built at first use — never at
 import, so the package imports on machines without nvcc or a GPU.
 """
 
@@ -16,13 +17,26 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Every C entry point of csrc/, bound once at load: (source, function) ->
+# argument types. Pointers and the trailing cudaStream_t are void*; each
+# function returns its cudaGetLastError() as an int.
+SIGNATURES: Dict[Tuple[str, str], tuple] = {
+    ("hamming", "hamming_matrix_launch"): (_P, _P, _P, _I, _I, _P),
+    # imgs, group_k, uv, out, mask, then the scalar arguments packed in one
+    # buffer (patch_sample.LaunchArgs as bytes)
+    ("patch_sample", "patch_sample_launch"): (_P,) * 5 + (ctypes.c_char_p, _P),
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -65,6 +79,8 @@ def build(name: str) -> str:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name}.cu:\n{res.stdout}{res.stderr}")
+        with open(out + ".log", "w") as f:
+            f.write(res.stdout + res.stderr)
         os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     finally:
         if os.path.exists(tmp):
@@ -73,10 +89,35 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu once per process."""
+    """Build (if needed) and load csrc/<name>.cu once per process, with
+    every entry point's signature from SIGNATURES bound."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name))
+            for (src, fn), argtypes in SIGNATURES.items():
+                if src == name:
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+def launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Call entry point `fn` of csrc/<name>.cu with `args` and the current
+    stream of CUDA `device`, entering a device context only when `device`
+    is not the current one. Raises when the build fails or the call returns
+    a cudaError."""
+    f = getattr(load(name), fn)
+    # the raw cudaStream_t of the device's current stream, without building
+    # a torch.cuda.Stream (a few microseconds a call on the sampler's path)
+    if device.index == torch.cuda.current_device():
+        err = f(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = f(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: cudaError {err}")

@@ -10,10 +10,11 @@ descriptors (see ops.orb).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
+
+from . import cuda_lib
 
 INF = 10_000  # > max possible Hamming distance (256)
 WORDS = 8  # 32-bit words per 256-bit descriptor
@@ -58,18 +59,9 @@ def _hamming_cuda(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     n1, n2 = d1.shape[0], d2.shape[0]
     if n1 > _MAX_ROWS:
         raise ValueError(f"hamming_matrix takes at most {_MAX_ROWS} rows, got {n1}")
-    from . import cuda_lib
-
-    fn = cuda_lib.load("hamming").hamming_matrix_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((n1, n2), dtype=torch.int32, device=d1.device)
-    with torch.cuda.device(d1.device):
-        stream = torch.cuda.current_stream(d1.device).cuda_stream
-        err = fn(d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n1, n2, stream)
-    if err != 0:
-        raise RuntimeError(f"hamming kernel launch failed: cudaError {err}")
+    cuda_lib.launch("hamming", "hamming_matrix_launch", d1.device,
+                    d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n1, n2)
     return out
 
 

@@ -10,25 +10,65 @@ wrapper's, kept exactly because it decides which samples are masked:
 origins snap down to 8-row / 128-px tiles, and a level whose padded extent
 (H8, W128) fits the region uses the whole image (origin 0).
 
-`grouped_bilinear_stack` computes the origins and the mask in PyTorch, then
-samples with the hand-written kernel (csrc/patch_sample.cu) for a CUDA
-stack, or with `grouped_bilinear_stack_plain`'s arithmetic for a CPU stack.
-There is no fallback from the kernel to the plain version. Sampling is
-float32: the TPU's single-pass bf16 mode has no counterpart here.
+For a CUDA stack `grouped_bilinear_stack` is one launch of the hand-written
+kernel (csrc/patch_sample.cu), which computes the origins, the mask and the
+samples; its scalar arguments come from `launch_args`, pure Python on shapes
+and strides. A CPU stack takes `grouped_bilinear_stack_plain`'s arithmetic
+(`regions`, then `_plain_values`). There is no fallback from the kernel to
+the plain version. Sampling is float32: the TPU's single-pass bf16 mode has
+no counterpart here.
 """
 
 from __future__ import annotations
 
-import ctypes
+import struct
+from typing import NamedTuple
 
 import torch
+
+from . import cuda_lib
 
 ALIGN_Y = 8
 ALIGN_X = 128
 _BIG = 1e9
 
 
-def _check(imgs: torch.Tensor, group_k: torch.Tensor, uv: torch.Tensor) -> None:
+def region_shape(H: int, W: int, region_h: int, region_w: int):
+    """(RH, RW, H8, W128): the group region, or the whole padded level
+    (H8, W128) along an axis where it fits."""
+    H8 = -(-H // ALIGN_Y) * ALIGN_Y
+    W128 = -(-W // ALIGN_X) * ALIGN_X
+    RH = H8 if H8 <= region_h else region_h
+    RW = W128 if W128 <= region_w else region_w
+    return RH, RW, H8, W128
+
+
+class LaunchArgs(NamedTuple):
+    """The kernel's scalar arguments, in the order of csrc/patch_sample.cu's
+    LaunchArgs struct (packed by PACK)."""
+    img_stride: int
+    row_stride: int
+    k_stride: int  # group_k's element stride: a strided view is read in place
+    G: int
+    Q: int
+    H: int
+    W: int
+    RH: int
+    RW: int
+    H8: int
+    W128: int
+    full_h: int  # the padded level height fits the region: origin row 0
+    full_w: int  # ... and the width: origin column 0
+
+
+PACK = struct.Struct("=3q10i")  # LaunchArgs as the C struct: 3 int64, 10 int32
+
+
+def launch_args(imgs: torch.Tensor, group_k: torch.Tensor, uv: torch.Tensor,
+                region_h: int = 160, region_w: int = 384) -> LaunchArgs:
+    """Check the inputs (raising on what the kernel does not take) and
+    return the kernel's scalar arguments: pure Python on types, shapes and
+    strides, no tensor op and no device access, so it is cheap per call."""
     for name, t in (("imgs", imgs), ("group_k", group_k), ("uv", uv)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
@@ -39,28 +79,24 @@ def _check(imgs: torch.Tensor, group_k: torch.Tensor, uv: torch.Tensor) -> None:
     if imgs.dim() != 4 or uv.dim() != 3 or uv.shape[2] != 2 or group_k.dim() != 1:
         raise ValueError(f"want imgs [K, H, W, 3], group_k [G], uv [G, Q, 2]; got "
                          f"{tuple(imgs.shape)}, {tuple(group_k.shape)}, {tuple(uv.shape)}")
-    if group_k.shape[0] != uv.shape[0]:
-        raise ValueError(f"group_k has {group_k.shape[0]} groups, uv {uv.shape[0]}")
-    K, H, W, C = imgs.shape
+    G, Q, _ = uv.shape
+    if group_k.shape[0] != G:
+        raise ValueError(f"group_k has {group_k.shape[0]} groups, uv {G}")
+    _, H, W, C = imgs.shape
     if H < 2 or W < 2 or C != 3:
         raise ValueError(f"imgs [K, H, W, 3] needs H, W >= 2, got {tuple(imgs.shape)}")
     # the kernel reads a pixel's channels and a row's pixels contiguously;
     # image and row strides are free, so a packed pyramid level is read in place
-    if imgs.stride(3) != 1 or imgs.stride(2) != 3:
+    img_stride, row_stride, px_stride, c_stride = imgs.stride()
+    if c_stride != 1 or px_stride != 3:
         raise ValueError(f"imgs rows must be contiguous [W, 3], got strides {imgs.stride()}")
     if not uv.is_contiguous():
         raise ValueError("uv must be contiguous")
     if not (imgs.device == group_k.device == uv.device):
         raise ValueError(f"imgs on {imgs.device}, group_k on {group_k.device}, uv on {uv.device}")
-
-
-def region_shape(H: int, W: int, region_h: int, region_w: int):
-    """(RH, RW): the group region, or the whole padded level when it fits."""
-    H8 = -(-H // ALIGN_Y) * ALIGN_Y
-    W128 = -(-W // ALIGN_X) * ALIGN_X
-    RH = H8 if H8 <= region_h else region_h
-    RW = W128 if W128 <= region_w else region_w
-    return RH, RW, H8, W128
+    RH, RW, H8, W128 = region_shape(H, W, region_h, region_w)
+    return LaunchArgs(img_stride, row_stride, group_k.stride(0), G, Q, H, W, RH, RW, H8, W128,
+                      int(RH == H8), int(RW == W128))
 
 
 def regions(imgs: torch.Tensor, group_k: torch.Tensor, uv: torch.Tensor,
@@ -116,7 +152,7 @@ def grouped_bilinear_stack_plain(imgs: torch.Tensor, group_k: torch.Tensor, uv: 
                                  region_h: int = 160, region_w: int = 384):
     """Plain PyTorch version of the kernel, on any device: (vals [G, Q, 3],
     mask [G, Q])."""
-    _check(imgs, group_k, uv)
+    launch_args(imgs, group_k, uv, region_h, region_w)  # the kernel's checks
     uv, meta, mask, RH, RW = regions(imgs, group_k, uv, region_h, region_w)
     return _plain_values(imgs, meta, uv, mask, RH, RW), mask
 
@@ -126,21 +162,25 @@ def grouped_bilinear_stack(imgs: torch.Tensor, group_k: torch.Tensor, uv: torch.
     """Bilinear samples of grouped clusters of points.
 
     imgs [K, H, W, 3] float32 (I, sobel-x, sobel-y; rows contiguous);
-    group_k [G] int64 image index per group; uv [G, Q, 2] level-pixel
-    sample positions. Samples outside the image or outside their group's
-    region return 0 with mask False. Returns (vals [G, Q, 3], mask [G, Q]).
+    group_k [G] int64 image index per group (any stride); uv [G, Q, 2]
+    level-pixel sample positions. Samples outside the image or outside
+    their group's region return 0 with mask False. Returns (vals [G, Q, 3],
+    mask [G, Q]).
 
-    A CUDA stack launches csrc/patch_sample.cu (counted in
+    A CUDA stack is one launch of csrc/patch_sample.cu on the current
+    stream, besides the two output allocations (counted in
     `grouped_bilinear_stack.launches`); a CPU stack takes the plain version.
     Anything else raises, as does a missing nvcc, a failed build or a
     refused launch."""
-    _check(imgs, group_k, uv)
-    uv, meta, mask, RH, RW = regions(imgs, group_k, uv, region_h, region_w)
-    if imgs.device.type == "cpu":
+    a = launch_args(imgs, group_k, uv, region_h, region_w)
+    if not imgs.is_cuda:
+        if imgs.device.type != "cpu":
+            raise RuntimeError(f"grouped_bilinear_stack has no kernel for device {imgs.device}")
+        uv, meta, mask, RH, RW = regions(imgs, group_k, uv, region_h, region_w)
         return _plain_values(imgs, meta, uv, mask, RH, RW), mask
-    if imgs.device.type != "cuda":
-        raise RuntimeError(f"grouped_bilinear_stack has no kernel for device {imgs.device}")
-    vals = _launch(imgs, meta, uv, mask, RH, RW)
+    vals = uv.new_empty((a.G, a.Q, 3))
+    mask = uv.new_empty((a.G, a.Q), dtype=torch.bool)
+    _launch(imgs, group_k, uv, vals, mask, a)
     grouped_bilinear_stack.launches += 1
     return vals, mask
 
@@ -148,25 +188,8 @@ def grouped_bilinear_stack(imgs: torch.Tensor, group_k: torch.Tensor, uv: torch.
 grouped_bilinear_stack.launches = 0
 
 
-def _launch(imgs, meta, uv, mask, RH: int, RW: int) -> torch.Tensor:
-    K, H, W, _ = imgs.shape
-    G, Q = mask.shape
-    if G > 65535:
-        raise ValueError(f"grouped_bilinear_stack takes at most 65535 groups, got {G}")
-    from . import cuda_lib
-
-    fn = cuda_lib.load("patch_sample").patch_sample_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-                       ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty((G, Q, 3), dtype=torch.float32, device=imgs.device)
-    mask = mask.contiguous()
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        err = fn(imgs.data_ptr(), imgs.stride(0), imgs.stride(1), meta.data_ptr(),
-                 uv.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                 G, Q, H, W, RH, RW, stream)
-    if err != 0:
-        raise RuntimeError(f"patch_sample kernel launch failed: cudaError {err}")
-    return out
+def _launch(imgs, group_k, uv, vals, mask, a: LaunchArgs) -> None:
+    """The kernel on (vals, mask), allocated by the caller."""
+    cuda_lib.launch("patch_sample", "patch_sample_launch", imgs.device,
+                    imgs.data_ptr(), group_k.data_ptr(), uv.data_ptr(), vals.data_ptr(),
+                    mask.data_ptr(), PACK.pack(*a))
