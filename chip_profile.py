@@ -14,7 +14,9 @@ device kernels by time and the port's own kernels with their device time
 per execution. Before that window it traces 20 calls of the region sampler
 at the path's commonest shape (level 0 of a frame's packed pyramid, G = 16,
 Q = 512) and prints the device operations per call, which must be the one
-kernel. Then times whole text runs in turns
+kernel, and 20 matcher searches with an alternate descriptor set at the
+tracking shape [4096, 1000], each of which must run the Hamming kernel once
+and no separate minimum. Then times whole text runs in turns
 (deterministic, atomic, atomic, deterministic) with the BA's segment sums
 (solver/ba.py::_segment_sum) in PyTorch's deterministic mode, as the port
 runs them, and as plain index_add_ (CUDA atomics); prints each run's
@@ -31,7 +33,7 @@ import sys
 import time
 
 
-PORT_KERNELS = ("region_sample_kernel", "hamming_kernel")  # csrc/*.cu kernel names
+PORT_KERNELS = ("region_sample_kernel", "hamming_mma_kernel")  # csrc/*.cu kernel names
 
 
 def dev_us(e):
@@ -71,6 +73,43 @@ def sampler_call_trace(card: str, n: int = 20) -> None:
           + f"  [{card}]")
     check(len(ops) == 1 and PORT_KERNELS[0] in next(iter(ops)) and
           next(iter(ops.values()))[0] == n, f"sampler calls ran {ops} on the card")
+
+
+def hamming_call_trace(card: str, n: int = 20) -> None:
+    """Device operations of n mutual_best_match searches with an alternate
+    descriptor set at the tracking shape [4096, 1000]; fails unless each
+    search ran the Hamming kernel exactly once and no separate minimum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import check
+    from textslam_tpu_torch.ops import matching
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    d1, d1_alt, d2 = (torch.randint(-2**31, 2**31 - 1, (k, 8), dtype=torch.int32, device="cuda",
+                                    generator=gen) for k in (4096, 4096, 1000))
+    v1 = torch.rand(4096, device="cuda", generator=gen) < 0.9
+    v2 = torch.rand(1000, device="cuda", generator=gen) < 0.9
+    pair = torch.rand((4096, 1000), device="cuda", generator=gen) < 0.05
+
+    def search():
+        return matching.mutual_best_match(d1, d2, v1, v2, pair_mask=pair, max_dist=100,
+                                          d1_alt=d1_alt)
+
+    search()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            search()
+        torch.cuda.synchronize()
+    ops = {e.key: (e.count, dev_us(e)) for e in device_events(prof)}
+    ham = [(c, us) for k, (c, us) in ops.items() if PORT_KERNELS[1] in k]
+    print(f"mutual_best_match with d1_alt, {n} searches at [4096, 1000]: device operations "
+          f"{sum(c for c, _ in ops.values()) / n:g} per search, the Hamming kernel "
+          f"{sum(c for c, _ in ham) / n:g} per search at "
+          f"{sum(us for _, us in ham) / max(sum(c for c, _ in ham), 1):.2f} us each; "
+          + "; ".join(f"{k[:60]} x{c}" for k, (c, _) in ops.items()) + f"  [{card}]")
+    check(len(ham) == 1 and ham[0][0] == n, f"searches ran the Hamming kernel {ham}, want {n}")
+    check(not any("minimum" in k for k in ops), f"a separate minimum ran on the card: {ops}")
 
 
 def segment_sum_ab(text_setup, n_frames: int, card: str) -> int:
@@ -129,6 +168,7 @@ def main() -> int:
     card = card_line()
     print(card)
     sampler_call_trace(card)
+    hamming_call_trace(card)
     slam, frames, dets, _, _ = text_setup(args.frames)
     for i in range(args.start):
         slam.track_monocular(frames[i], float(i), detections=dets[i])

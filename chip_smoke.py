@@ -10,9 +10,15 @@ Phases, each of which must pass (any failure exits non-zero):
    all started together (csrc/hamming.cu, csrc/patch_sample.cu), and print
    the build time and ptxas's registers and spills;
 3. hold the Hamming kernel against its plain PyTorch version on random
-   descriptors at the main path's shapes (exact equality) and time both with
-   CUDA events, beside two one-call PyTorch yardsticks (torch.cdist(p=0) on
-   the unpacked bits, a +-1 bf16 matmul), each held exactly equal once;
+   descriptors at the main path's shapes and three ragged ones, without and
+   with the alternate row set (one launch computes the minimum), with
+   all-zero, all-ones and identical descriptors (exact equality), and time
+   them with CUDA events beside the old path of a search (two launches and
+   torch.minimum) and two one-call PyTorch yardsticks (torch.cdist(p=0) on
+   the unpacked bits, a +-1 bf16 matmul), each held exactly equal once,
+   both back to back from the host and as device time per call (CUDA
+   graphs); ptxas's registers and spills, and the binary MMA instructions in
+   the built kernel (cuobjdump), are printed in phase 2;
 4. hold the grouped region sampler (one launch computes the region
    origins, the mask and the samples) against its plain PyTorch version on
    the images the main path hands it (a frame's packed pyramid levels 0..2
@@ -62,8 +68,15 @@ N_SCENE_FRAMES = 40
 N_TEXT_FRAMES = 24  # ~8 keyframes: at least 6 and below the 20 of the loop gate
 # Hamming shapes on the main path: tracked frames [P, 1000] for point pools
 # of 4096..32768, two-view init [3000, 3000], keyframe triangulation
-# [1000, 1000], and a ragged shape that exercises the edge masking
-HAMMING_SHAPES = [(4096, 1000), (32768, 1000), (3000, 3000), (1000, 1000), (1001, 999)]
+# [1000, 1000]; then ragged shapes that exercise the edge masking and the
+# scalar stores of rows that are not 16-byte aligned
+HAMMING_SHAPES = [(4096, 1000), (32768, 1000), (3000, 3000), (1000, 1000), (1001, 999),
+                  (4095, 1001), (17, 9), (1, 1)]
+# Hamming launches of the text run: one per search (the alternate-descriptor
+# minimum in the same launch), two searches per tracked frame, and one more
+# (triangulation) per keyframe insertion
+HAMMING_PER_FRAME, HAMMING_PER_KF = 2.0, 3.0
+HAMMING_GRAPH_CALLS = 20  # calls per CUDA graph when timing the device alone
 # sampler: groups of Q = 64 features x 8 pattern samples (one text box per
 # group) on the images the main path hands the kernel. The path cases: one
 # frame's packed pyramid level, sampled in place (a view whose row stride is
@@ -147,48 +160,138 @@ def unpack_bits(d):
     return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], 256).float()
 
 
+def capture(fn, n: int):
+    """A CUDA graph of n calls of fn (after one warm-up call on a side
+    stream): replaying it runs their launches with no host work between."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return graph
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Device milliseconds per call: CUDA events around replays of a CUDA
+    graph that captured n calls."""
+    graph = capture(fn, n)
+    ms = time_ms(graph.replay, iters=10) / n
+    del graph
+    return ms
+
+
+def _hamming_inputs(gen, n1: int, n2: int):
+    """Random descriptors (d1, d1_alt, d2) with the edge cases written into
+    the first rows and columns where the shape has room: all-zero and
+    all-ones words (the int32 sign bit set in every word), rows identical
+    to columns. Returns the tensors and {(set, i, j): expected distance}."""
+    import torch
+
+    def rnd(n):
+        return torch.randint(-2**31, 2**31 - 1, (n, 8), dtype=torch.int32, device="cuda",
+                             generator=gen)
+
+    d1, d1_alt, d2 = rnd(n1), rnd(n1), rnd(n2)
+    expect = {}
+    d1[0], d2[0] = 0, -1  # all zeros against all ones: 256 in both entries
+    d1_alt[0] = 0 if n2 == 1 else d2[0]
+    expect[("d1", 0, 0)] = 256
+    expect[("min", 0, 0)] = 256 if n2 == 1 else 0
+    if n1 > 1 and n2 > 1:
+        d1[1], d1_alt[1], d2[1] = -1, -1, -1  # all ones against all ones
+        expect[("d1", 1, 1)] = expect[("min", 1, 1)] = 0
+        expect[("d1", 1, 0)] = 0
+        expect[("d1", 0, 1)] = 256
+    if n1 > 3 and n2 > 3:
+        d2[2], d2[3] = d1[2], d1_alt[3]  # rows identical to columns
+        expect[("d1", 2, 2)] = expect[("min", 2, 2)] = expect[("min", 3, 3)] = 0
+    return d1, d1_alt, d2, expect
+
+
 def compare_hamming(matching, card: str):
-    """Kernel vs plain version at every path shape; exact equality. Beside
-    them two one-call PyTorch yardsticks the port never calls, each held
-    exactly equal to the kernel at [4096, 1000]: torch.cdist(p=0) on the
-    descriptors unpacked to 0/1 floats (it counts the differing bits), and a
-    bf16 matmul of the +-1 bits (256 - 2 H, exact in bf16)."""
+    """Kernel vs plain version at every path shape and the ragged ones,
+    without and with the alternate row set (hamming_matrix and
+    hamming_matrix_min): exact equality, and the edge descriptors at their
+    known distances. Times (medians of 5, in turns): the kernel, the
+    one-launch minimum, the old path of a search (two launches and
+    torch.minimum), the plain version and two one-call PyTorch yardsticks
+    the port never calls, each held exactly equal to the kernel once:
+    torch.cdist(p=0) on the descriptors unpacked to 0/1 floats (it counts
+    the differing bits), and a bf16 matmul of the +-1 bits (256 - 2 H, exact
+    in bf16)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for n1, n2 in HAMMING_SHAPES:
-        d1 = torch.randint(-2**31, 2**31 - 1, (n1, 8), dtype=torch.int32, device="cuda",
-                           generator=gen)
-        d2 = torch.randint(-2**31, 2**31 - 1, (n2, 8), dtype=torch.int32, device="cuda",
-                           generator=gen)
-        got = matching.hamming_matrix(d1, d2)
-        want = matching.hamming_matrix_plain(d1, d2)
+        d1, d1_alt, d2, expect = _hamming_inputs(gen, n1, n2)
+        got = {"d1": matching.hamming_matrix(d1, d2),
+               "min": matching.hamming_matrix_min(d1, d1_alt, d2)}
+        want = {"d1": matching.hamming_matrix_plain(d1, d2),
+                "min": matching.hamming_matrix_min_plain(d1, d1_alt, d2)}
         torch.cuda.synchronize()
-        err = int((got - want).abs().max().item())
-        check(torch.equal(got, want), f"hamming kernel != plain at {n1}x{n2} (max err {err})")
-        check(int(want.min()) >= 0 and int(want.max()) <= 256, "plain hamming out of range")
-        unpack_ms = time_ms(lambda: (unpack_bits(d1), unpack_bits(d2)), iters=20)
+        err = 0
+        for k in got:
+            check(got[k].shape == (n1, n2) and got[k].dtype == torch.int32,
+                  f"hamming {k} at {n1}x{n2}: {tuple(got[k].shape)} {got[k].dtype}")
+            e = int((got[k] - want[k]).abs().max().item())
+            err = max(err, e)
+            check(torch.equal(got[k], want[k]),
+                  f"hamming kernel ({k}) != plain at {n1}x{n2} (max err {e})")
+            check(int(want[k].min()) >= 0 and int(want[k].max()) <= 256,
+                  "plain hamming out of range")
+        for (k, i, j), h in expect.items():
+            check(int(got[k][i, j]) == h, f"hamming {k}[{i}, {j}] at {n1}x{n2}: "
+                                          f"{int(got[k][i, j])}, want {h}")
         b1, b2 = unpack_bits(d1), unpack_bits(d2)
         s1, s2 = (1 - 2 * b1).bfloat16(), (1 - 2 * b2).bfloat16()
         if (n1, n2) == HAMMING_SHAPES[0]:
-            check(torch.equal(torch.cdist(b1, b2, p=0).int(), got), "cdist(p=0) != kernel")
-            check(torch.equal(((256 - torch.matmul(s1, s2.T).float()) / 2).int(), got),
+            check(torch.equal(torch.cdist(b1, b2, p=0).int(), got["d1"]), "cdist(p=0) != kernel")
+            check(torch.equal(((256 - torch.matmul(s1, s2.T).float()) / 2).int(), got["d1"]),
                   "+-1 bf16 matmul != kernel")
-        ms = time_ms(lambda: matching.hamming_matrix(d1, d2), iters=20)
-        plain_ms = time_ms(lambda: matching.hamming_matrix_plain(d1, d2), iters=5)
-        library_ms = time_ms(lambda: torch.cdist(b1, b2, p=0), iters=5)
-        matmul_ms = time_ms(lambda: torch.matmul(s1, s2.T), iters=20)
+        calls = {
+            "ms": lambda: matching.hamming_matrix(d1, d2),
+            "ms_alt": lambda: matching.hamming_matrix_min(d1, d1_alt, d2),
+            "old_path_ms": lambda: torch.minimum(matching.hamming_matrix(d1, d2),
+                                                 matching.hamming_matrix(d1_alt, d2)),
+            "bf16_matmul_ms": lambda: torch.matmul(s1, s2.T)}
+        fast = median_ms(calls, iters=20)  # back to back from the host, as the path calls them
+        slow = median_ms({
+            "plain_ms": lambda: matching.hamming_matrix_plain(d1, d2),
+            "library_ms": lambda: torch.cdist(b1, b2, p=0)}, iters=3)
+        # device time per call: replays of CUDA graphs of HAMMING_GRAPH_CALLS
+        # calls each, in turns (no host time between the launches)
+        graphs = {"device_" + k: capture(fn, HAMMING_GRAPH_CALLS) for k, fn in calls.items()}
+        dev = {k: v / HAMMING_GRAPH_CALLS for k, v in
+               median_ms({k: g.replay for k, g in graphs.items()}, iters=3).items()}
+        del graphs
         # descriptors read once, the int32 matrix written once; XOR + popcount
-        # + add per word pair
+        # + add per word pair (and the alternate set's, and a minimum, with d1_alt)
         bound_ms, bound_by = bound((n1 + n2) * 32 + n1 * n2 * 4, n1 * n2 * 8 * 3)
-        rows.append({"shape": [n1, n2], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                     "bf16_matmul_ms": matmul_ms, "unpack_ms": unpack_ms})
-        print(f"hamming {n1}x{n2}: equal, max_abs_err {err}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, cdist(p=0) on 0/1 floats {library_ms:.4f} ms, "
-              f"+-1 bf16 matmul {matmul_ms:.4f} ms (unpacking both to bits {unpack_ms:.4f} ms, "
-              f"not in either), bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+        bound_alt_ms, _ = bound((2 * n1 + n2) * 32 + n1 * n2 * 4, n1 * n2 * (8 * 6 + 1))
+        row = {"shape": [n1, n2], "max_abs_err": err, **fast, **slow, **dev,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_alt_ms": bound_alt_ms}
+        rows.append(row)
+        print(f"hamming {n1}x{n2}: equal without and with d1_alt (edge descriptors included); "
+              f"back to back from the host: kernel {row['ms']:.5f} ms, with d1_alt "
+              f"{row['ms_alt']:.5f} ms, old path (two launches + minimum) "
+              f"{row['old_path_ms']:.5f} ms, +-1 bf16 matmul {row['bf16_matmul_ms']:.5f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, cdist(p=0) on 0/1 floats "
+              f"{row['library_ms']:.4f} ms; device time per call (CUDA graph): kernel "
+              f"{row['device_ms']:.5f} ms (share of bound {bound_ms / row['device_ms']:.2f}), "
+              f"with d1_alt {row['device_ms_alt']:.5f} ms (share "
+              f"{bound_alt_ms / row['device_ms_alt']:.2f}), old path "
+              f"{row['device_old_path_ms']:.5f} ms, bf16 matmul "
+              f"{row['device_bf16_matmul_ms']:.5f} ms (kernel / matmul "
+              f"{row['device_ms'] / row['device_bf16_matmul_ms']:.2f}); bound {bound_ms:.5f} ms "
+              f"({bound_by}), with d1_alt {bound_alt_ms:.5f} ms  [{card}]")
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -373,25 +476,6 @@ def _sampler_cases(pyrs, gen):
     gk, uv = _sampler_samples(gen, 20, 60, 80, G, 3, Q=8)
     yield f"G = {G}, Q = 8 (20-slot KF stack), off the path", False, 3, \
         _sampler_stack(pyrs, 3, 20), gk, uv, lambda ps, im, k, uv, m: [(m.shape == (G, 8), "shape")]
-
-
-def device_ms(fn, n: int = 50) -> float:
-    """Device milliseconds per call: CUDA events around replays of a CUDA
-    graph that captured n calls (no host work between the launches)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    ms = time_ms(graph.replay, iters=10) / n
-    del graph
-    return ms
 
 
 def compare_sampler(patch_sample, card: str):
@@ -670,6 +754,11 @@ def run_text(card: str):
     res = _summary("text", frames, *out[:4], slam, gt, *out[4:], devices, card)
     for k, n in res["launches"].items():
         check(n > 0, f"text: the {k} kernel was never launched")
+    per = (res["launches_per_tracked_frame"]["hamming_matrix"],
+           res["launches_per_kf_insertion"]["hamming_matrix"])
+    check(per == (HAMMING_PER_FRAME, HAMMING_PER_KF),
+          f"text: Hamming launches per tracked frame / KF insertion {per}, want "
+          f"{(HAMMING_PER_FRAME, HAMMING_PER_KF)} (one per search)")
     n_good, cosines, failed = text_planes(slam, gt, world)
     print(f"text objects: {slam.map.n_texts}, GOOD {n_good}; GOOD normals vs ground truth "
           f"(string, KF observations, cos): {_planes_line(cosines)}")
@@ -752,6 +841,14 @@ def main() -> int:
         with open(lib + ".log") as f:
             print("\n".join(f"  {os.path.basename(lib)}: {line.strip()}" for line in f
                             if "ptxas info" in line or "spill" in line))
+    # the Hamming kernel's distances come from the tensor cores' binary MMA
+    sass = subprocess.run([os.path.join(os.path.dirname(cuda_lib.find_nvcc()), "cuobjdump"),
+                           "-sass", libs[0]], capture_output=True, text=True, check=True).stdout
+    n_bmma = sum("BMMA" in line for line in sass.splitlines())
+    n_popc = sum(" POPC " in line for line in sass.splitlines())
+    print(f"  {os.path.basename(libs[0])}: {n_bmma} BMMA (binary tensor-core MMA) and {n_popc} "
+          f"POPC instructions in the SASS of both instantiations (cuobjdump)")
+    check(n_bmma > 0, "the Hamming kernel has no BMMA instruction")
 
     hamming_rows = compare_hamming(matching, card)
     sampler_rows = compare_sampler(patch_sample, card)
@@ -759,6 +856,7 @@ def main() -> int:
     textrun = run_text(card)
 
     ham = hamming_rows[0]  # [4096, 1000]: every tracked frame below 4096 points
+    ham = dict(ham, max_abs_err=max(r["max_abs_err"] for r in hamming_rows))
     # level 0 of one frame's pyramid, G = 16: most of the path's launches
     smp = next(r for r in sampler_rows if r["case"] == "frame level view" and r["level"] == 0
                and r["groups"] == 16)
@@ -772,8 +870,14 @@ def main() -> int:
         {"name": "hamming_matrix", "route": "cuda", "source": "textslam_tpu_torch/csrc/hamming.cu",
          "replaces": "textslam_tpu/ops/pallas_kernels.py:52",
          "launches": textrun["launches"]["hamming_matrix"],
-         **{k: ham[k] for k in keys}, "bf16_matmul_ms": ham["bf16_matmul_ms"],
-         "shape": ham["shape"], "launches_scene_run": scene["launches"]["hamming_matrix"]},
+         **{k: ham[k] for k in keys},
+         **{k: ham[k] for k in ("ms_alt", "bound_alt_ms", "old_path_ms", "bf16_matmul_ms",
+                                "device_ms", "device_ms_alt", "device_old_path_ms",
+                                "device_bf16_matmul_ms")},
+         "shape": ham["shape"],
+         "launches_per_tracked_frame": textrun["launches_per_tracked_frame"]["hamming_matrix"],
+         "launches_per_kf_insertion": textrun["launches_per_kf_insertion"]["hamming_matrix"],
+         "launches_scene_run": scene["launches"]["hamming_matrix"]},
         {"name": "grouped_bilinear_stack", "route": "cuda",
          "source": "textslam_tpu_torch/csrc/patch_sample.cu",
          "replaces": "textslam_tpu/ops/pallas_kernels.py:193",

@@ -3,8 +3,9 @@
 Everything here is integer-valued (Hamming distances, indices, masks), so
 every comparison is exact. The CUDA kernel itself runs only on the GPU
 (chip_smoke.py holds it against the plain version there); here the plain
-version is held against the JAX XLA path and against the Pallas kernel in
-interpret mode, and the CUDA path is shown to raise rather than fall back.
+versions are held against the JAX XLA path and against the Pallas kernel in
+interpret mode, the launch checks are exercised, and the CUDA path is shown
+to raise rather than fall back.
 """
 
 import numpy as np
@@ -46,6 +47,27 @@ def test_plain_hamming_equals_xla(shape):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), _xla_hamming(d1, d2))
     np.testing.assert_array_equal(got.numpy(), np.asarray(jm.hamming_matrix(jnp.asarray(d1), jnp.asarray(d2))))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (17, 9), (257, 129)])
+def test_hamming_min_equals_jax(shape):
+    """The alternate-descriptor minimum (one launch on the card) against the
+    JAX package's two matrices and jnp.minimum, with all-ones and all-zero
+    rows in every row set."""
+    n1, n2 = shape
+    rng = np.random.default_rng(100 + n1)
+    d1, d1_alt, d2 = _desc(rng, n1), _desc(rng, n1), _desc(rng, n2)
+    d1[0], d2[0] = 0xFFFFFFFF, 0
+    d1_alt[-1], d2[-1] = 0, 0xFFFFFFFF
+    if n1 > 2:
+        d1[1], d1_alt[2] = 0, 0xFFFFFFFF
+    got = tm.hamming_matrix_min(_t(d1), _t(d1_alt), _t(d2))
+    want = jnp.minimum(jm.hamming_matrix(jnp.asarray(d1), jnp.asarray(d2)),
+                       jm.hamming_matrix(jnp.asarray(d1_alt), jnp.asarray(d2)))
+    assert got.dtype == torch.int32 and got.shape == shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(tm.hamming_matrix_min_plain(_t(d1), _t(d1_alt), _t(d2)).numpy(),
+                                  np.asarray(want))
 
 
 def test_plain_hamming_chunked_rows():
@@ -167,14 +189,44 @@ def test_wrapper_rejects_bad_inputs():
         tm.hamming_matrix(torch.zeros((8, 4), dtype=torch.int32).t(), d)
 
 
-def test_non_cpu_path_raises_instead_of_falling_back(monkeypatch, tmp_path):
+def test_launch_args_checks():
+    d = torch.zeros((4, 8), dtype=torch.int32)
+    assert tm.launch_args(d, torch.zeros((3, 8), dtype=torch.int32)) == (4, 3)
+    assert tm.launch_args(d, d[:2], d1_alt=d.clone()) == (4, 2)
+    bad = [
+        ((d.to(torch.int64), d), {}, TypeError),  # dtype
+        ((d.numpy(), d), {}, TypeError),  # not a tensor
+        ((torch.zeros((4, 7), dtype=torch.int32), d), {}, ValueError),  # words
+        ((torch.zeros((4, 8, 1), dtype=torch.int32), d), {}, ValueError),  # rank
+        ((torch.zeros((8, 4), dtype=torch.int32).t(), d), {}, ValueError),  # stride
+        ((d, d), {"d1_alt": torch.zeros((8, 4), dtype=torch.int32).t()}, ValueError),
+        ((d, d), {"d1_alt": d[:3]}, ValueError),  # d1_alt not of d1's shape
+        ((d, d), {"d1_alt": d.to(torch.int64)}, TypeError),
+        ((d, torch.zeros((4, 8), dtype=torch.int32, device="meta")), {}, ValueError),  # device
+        ((d, d), {"d1_alt": torch.zeros((4, 8), dtype=torch.int32, device="meta")}, ValueError),
+        ((torch.zeros(33, dtype=torch.int32)[1:].view(4, 8), d), {}, ValueError),  # 4-byte aligned
+    ]
+    for args, kw, err in bad:
+        with pytest.raises(err):
+            tm.launch_args(*args, **kw)
+    rows = torch.zeros((tm._MAX_ROWS + 1, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="rows"):
+        tm.launch_args(rows, d.to("meta"))
+    assert tm.launch_args(rows[:-1], d.to("meta")) == (tm._MAX_ROWS, 4)
+
+
+@pytest.mark.parametrize("entry", ["hamming_matrix", "hamming_matrix_min"])
+def test_non_cpu_path_raises_instead_of_falling_back(monkeypatch, tmp_path, entry):
     """A device other than the CPU never takes the plain version: without a
     kernel it raises, and the CUDA path raises when nvcc is missing, before
     anything is counted as a launch."""
     before = tm.hamming_matrix.launches
     meta = torch.zeros((4, 8), dtype=torch.int32, device="meta")
-    with pytest.raises(RuntimeError):
-        tm.hamming_matrix(meta, meta)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        if entry == "hamming_matrix":
+            tm.hamming_matrix(meta, meta)
+        else:
+            tm.hamming_matrix_min(meta, meta, meta)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(cuda_lib, "BUILD_DIR", str(tmp_path / "build"))
@@ -183,5 +235,5 @@ def test_non_cpu_path_raises_instead_of_falling_back(monkeypatch, tmp_path):
                         lambda p: False if p.endswith("nvcc") else True)
     d = torch.zeros((4, 8), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tm._hamming_cuda(d, d)
+        tm._hamming_cuda(d, d, None if entry == "hamming_matrix" else d.clone())
     assert tm.hamming_matrix.launches == before

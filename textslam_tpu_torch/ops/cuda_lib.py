@@ -32,7 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument types. Pointers and the trailing cudaStream_t are void*; each
 # function returns its cudaGetLastError() as an int.
 SIGNATURES: Dict[Tuple[str, str], tuple] = {
-    ("hamming", "hamming_matrix_launch"): (_P, _P, _P, _I, _I, _P),
+    # d1, d1_alt (NULL for none), d2, out, n1, n2
+    ("hamming", "hamming_matrix_launch"): (_P, _P, _P, _P, _I, _I, _P),
     # imgs, group_k, uv, out, mask, then the scalar arguments packed in one
     # buffer (patch_sample.LaunchArgs as bytes)
     ("patch_sample", "patch_sample_launch"): (_P,) * 5 + (ctypes.c_char_p, _P),

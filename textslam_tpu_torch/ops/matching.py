@@ -1,8 +1,9 @@
 """Batched binary descriptor matching, port of textslam_tpu/ops/matching.py.
 
 The whole N1 x N2 Hamming distance matrix comes from one kernel launch
-(csrc/hamming.cu on the GPU); spatial windows, level gates and validity are
-masks on that matrix, and best-2 + column uniqueness are reductions over it.
+(csrc/hamming.cu on the GPU), the alternate-descriptor minimum included;
+spatial windows, level gates and validity are masks on that matrix, and
+best-2 + column uniqueness are reductions over it.
 
 Descriptors are int32 [N, 8] tensors holding the bits of 256-bit ORB
 descriptors (see ops.orb).
@@ -10,7 +11,7 @@ descriptors (see ops.orb).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,18 +19,35 @@ from . import cuda_lib
 
 INF = 10_000  # > max possible Hamming distance (256)
 WORDS = 8  # 32-bit words per 256-bit descriptor
-_MAX_ROWS = 65535 * 64  # grid.y limit x rows per block (csrc/hamming.cu)
+_TILE_ROWS = 64  # rows per block of csrc/hamming.cu
+_MAX_ROWS = 65535 * _TILE_ROWS  # CUDA's grid.y limit x rows per block
 
 
-def _check_desc(name: str, d: torch.Tensor) -> None:
-    if not isinstance(d, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(d).__name__}")
-    if d.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32 descriptor bits, got {d.dtype}")
-    if d.dim() != 2 or d.shape[1] != WORDS:
-        raise ValueError(f"{name} must have shape [N, {WORDS}], got {tuple(d.shape)}")
-    if not d.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def launch_args(d1: torch.Tensor, d2: torch.Tensor,
+                d1_alt: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """Check the descriptors (raising on what the kernel does not take) and
+    return (N1, N2): pure Python on types, shapes, strides and pointers, no
+    tensor op and no device access."""
+    named = [("d1", d1), ("d2", d2)] + ([] if d1_alt is None else [("d1_alt", d1_alt)])
+    for name, d in named:
+        if not isinstance(d, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(d).__name__}")
+        if d.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32 descriptor bits, got {d.dtype}")
+        if d.dim() != 2 or d.shape[1] != WORDS:
+            raise ValueError(f"{name} must have shape [N, {WORDS}], got {tuple(d.shape)}")
+        if not d.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if d.data_ptr() % 16:  # the kernel reads a descriptor as two 16-byte vectors
+            raise ValueError(f"{name} must be 16-byte aligned")
+        if d is not d1 and d.device != d1.device:
+            raise ValueError(f"d1 on {d1.device} but {name} on {d.device}")
+    if d1_alt is not None and d1_alt.shape != d1.shape:
+        raise ValueError(f"d1_alt {tuple(d1_alt.shape)} must have d1's shape {tuple(d1.shape)}")
+    n1, n2 = d1.shape[0], d2.shape[0]
+    if n1 > _MAX_ROWS:
+        raise ValueError(f"hamming_matrix takes at most {_MAX_ROWS} rows, got {n1}")
+    return n1, n2
 
 
 def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
@@ -40,28 +58,40 @@ def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     the launch in `hamming_matrix.launches`; CPU tensors take the plain
     version. Anything else raises: there is no fallback from the kernel to
     the plain version."""
-    _check_desc("d1", d1)
-    _check_desc("d2", d2)
-    if d1.device != d2.device:
-        raise ValueError(f"d1 on {d1.device} but d2 on {d2.device}")
-    if d1.device.type == "cpu":
-        return hamming_matrix_plain(d1, d2)
-    if d1.device.type != "cuda":
-        raise RuntimeError(f"hamming_matrix has no kernel for device {d1.device}")
-    out = _hamming_cuda(d1, d2)
-    hamming_matrix.launches += 1
-    return out
+    launch_args(d1, d2)
+    if d1.is_cuda:
+        return _hamming_cuda(d1, d2)
+    _require_cpu(d1)
+    return hamming_matrix_plain(d1, d2)
 
 
-def _hamming_cuda(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+def hamming_matrix_min(d1: torch.Tensor, d1_alt: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """min(hamming_matrix(d1, d2), hamming_matrix(d1_alt, d2)) in one
+    launch of the same kernel, counted in `hamming_matrix.launches`; the
+    same contract as hamming_matrix."""
+    launch_args(d1, d2, d1_alt)
+    if d1.is_cuda:
+        return _hamming_cuda(d1, d2, d1_alt)
+    _require_cpu(d1)
+    return hamming_matrix_min_plain(d1, d1_alt, d2)
+
+
+def _require_cpu(d: torch.Tensor) -> None:
+    """The plain version is for CPU tensors only: any other device raises."""
+    if d.device.type != "cpu":
+        raise RuntimeError(f"hamming_matrix has no kernel for device {d.device}")
+
+
+def _hamming_cuda(d1: torch.Tensor, d2: torch.Tensor,
+                  d1_alt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch csrc/hamming.cu on the current stream of d1's device. Raises
     when nvcc is missing, the build fails or the launch is refused."""
     n1, n2 = d1.shape[0], d2.shape[0]
-    if n1 > _MAX_ROWS:
-        raise ValueError(f"hamming_matrix takes at most {_MAX_ROWS} rows, got {n1}")
-    out = torch.empty((n1, n2), dtype=torch.int32, device=d1.device)
-    cuda_lib.launch("hamming", "hamming_matrix_launch", d1.device,
-                    d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n1, n2)
+    out = d1.new_empty((n1, n2))
+    cuda_lib.launch("hamming", "hamming_matrix_launch", d1.device, d1.data_ptr(),
+                    None if d1_alt is None else d1_alt.data_ptr(), d2.data_ptr(),
+                    out.data_ptr(), n1, n2)
+    hamming_matrix.launches += 1
     return out
 
 
@@ -92,6 +122,12 @@ def hamming_matrix_plain(d1: torch.Tensor, d2: torch.Tensor,
         x = a[s : s + rows, None, :] ^ b[None, :, :]
         out[s : s + rows] = _popcount32(x).sum(dim=-1).to(torch.int32)
     return out
+
+
+def hamming_matrix_min_plain(d1: torch.Tensor, d1_alt: torch.Tensor,
+                             d2: torch.Tensor) -> torch.Tensor:
+    """Plain twin of hamming_matrix_min."""
+    return torch.minimum(hamming_matrix_plain(d1, d2), hamming_matrix_plain(d1_alt, d2))
 
 
 def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
@@ -159,9 +195,7 @@ def mutual_best_match(
     mask = valid1[:, None] & valid2[None, :]
     if pair_mask is not None:
         mask = mask & pair_mask
-    dist = hamming_matrix(d1, d2)
-    if d1_alt is not None:
-        dist = torch.minimum(dist, hamming_matrix(d1_alt, d2))
+    dist = hamming_matrix(d1, d2) if d1_alt is None else hamming_matrix_min(d1, d1_alt, d2)
     idx2, best_d, second_d = masked_best2(dist, mask)
     ok = best_d <= max_dist
     if ratio is not None:
