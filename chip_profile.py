@@ -2,6 +2,7 @@
 """Device-time profile of the port's text pipeline on one GPU.
 
     python3 chip_profile.py [--frames 24] [--start 14] [--end 20]
+    python3 chip_profile.py --loop
 
 Runs chip_smoke.py's text run (its text_setup: the rendered 640x480 text
 world, seed 0, through TextSLAM(TextSLAMConfig(), device="cuda") with the
@@ -21,8 +22,11 @@ and no separate minimum. Then times whole text runs in turns
 (solver/ba.py::_segment_sum) in PyTorch's deterministic mode, as the port
 runs them, and as plain index_add_ (CUDA atomics); prints each run's
 per-frame median and whether the runs of each mode ended on identical
-keyframe poses and thetas. Exits non-zero without a CUDA device. Imports
-neither jax nor the JAX package.
+keyframe poses and thetas. With --loop it does only this instead: runs
+chip_smoke.py's loop run (its loop_setup: the 640x480 outback fixture with
+amnesia) and traces the loop closer's run that closes the loop, printing
+the same breakdown for the closure. Exits non-zero without a CUDA device.
+Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -112,6 +116,74 @@ def hamming_call_trace(card: str, n: int = 20) -> None:
     check(not any("minimum" in k for k in ops), f"a separate minimum ran on the card: {ops}")
 
 
+def breakdown(prof, wall_ms: float, n: int, what: str) -> list:
+    """Lines describing a traced window of n units (frames, closures):
+    host wall and device kernel time, the device's busy share, kernel
+    executions, host time in cudaLaunchKernel, the top device kernels and
+    the port's own kernels."""
+    rows = prof.key_averages()
+    kernels = device_events(prof)
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    launch_host_ms = sum(e.cpu_time_total for e in rows if e.key == "cudaLaunchKernel") / 1e3
+    lines = [
+        f"{what}: host wall {wall_ms:.1f} ms ({wall_ms / n:.1f} ms each), device kernel time "
+        f"{dev_ms:.1f} ms ({dev_ms / n:.1f} ms each), device busy {100 * dev_ms / wall_ms:.1f}%",
+        f"device kernel executions {n_launch} ({n_launch / n:.0f} each); host time in "
+        f"cudaLaunchKernel {launch_host_ms:.1f} ms",
+        "top device kernels (name | executions | device ms | share of device time):",
+    ]
+    ranked = sorted(kernels, key=dev_us, reverse=True)
+    for e in ranked[:25]:
+        lines.append(f"  {e.key[:90]:<90} | {e.count:>7} | {dev_us(e) / 1e3:>9.3f} | "
+                     f"{100 * dev_us(e) / 1e3 / dev_ms:>5.2f}%")
+    lines.append("the port's own kernels (name | executions | device ms | share | us per "
+                 "execution):")
+    for e in ranked:
+        if any(k in e.key for k in PORT_KERNELS):
+            lines.append(f"  {e.key[:90]:<90} | {e.count:>7} | {dev_us(e) / 1e3:>9.3f} | "
+                         f"{100 * dev_us(e) / 1e3 / dev_ms:>5.2f}% | {dev_us(e) / e.count:.2f}")
+    return lines
+
+
+def loop_closure_profile(card: str) -> int:
+    """torch.profiler over the loop closer's run that closes the loop in
+    chip_smoke.py's loop run; fails unless a loop closed and the closure
+    ran both of the port's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import check, loop_setup
+
+    slam, frames, dets, _, _, track = loop_setup()
+    lc = slam.loop_closer
+    run = lc.run
+    traced = []
+
+    def run_traced(kid):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            closed = run(kid)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if closed:
+            traced.append((kid, wall_ms, prof))
+        return closed
+
+    lc.run = run_traced
+    for i, img in enumerate(frames):
+        track(img, float(i), detections=dets[i])
+    check(traced, "the loop run closed no loop")
+    kid, wall_ms, prof = traced[0]
+    lines = breakdown(prof, wall_ms, 1, f"loop closure at keyframe {kid} -> "
+                                        f"{lc.closed_loops[0][1]}")
+    print("\n".join(lines) + f"  [{card}]")
+    names = {e.key for e in device_events(prof)}
+    for k in PORT_KERNELS:
+        check(any(k in n for n in names), f"the closure did not run {k}")
+    return 0
+
+
 def segment_sum_ab(text_setup, n_frames: int, card: str) -> int:
     import numpy as np
     import torch
@@ -155,6 +227,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--start", type=int, default=14)
     ap.add_argument("--end", type=int, default=20)
+    ap.add_argument("--loop", action="store_true",
+                    help="only profile the loop run's closure")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this profile needs one GPU", file=sys.stderr)
@@ -167,6 +241,8 @@ def main() -> int:
 
     card = card_line()
     print(card)
+    if args.loop:
+        return loop_closure_profile(card)
     sampler_call_trace(card)
     hamming_call_trace(card)
     slam, frames, dets, _, _ = text_setup(args.frames)
@@ -182,33 +258,12 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     n = args.end - args.start
-    rows = prof.key_averages()
-    kernels = device_events(prof)
-    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
-    n_launch = sum(e.count for e in kernels)
-    launch_host_ms = sum(e.cpu_time_total for e in rows if e.key == "cudaLaunchKernel") / 1e3
-    lines = [
-        f"frames {args.start}..{args.end - 1} ({n} frames, {len(slam.map.keyframes) - n_kf0} "
-        f"keyframe insertions): host wall {wall_ms:.1f} ms ({wall_ms / n:.1f} ms/frame), "
-        f"device kernel time {dev_ms:.1f} ms ({dev_ms / n:.1f} ms/frame), device busy "
-        f"{100 * dev_ms / wall_ms:.1f}%",
-        f"device kernel executions {n_launch} ({n_launch / n:.0f} per frame); host time in "
-        f"cudaLaunchKernel {launch_host_ms:.1f} ms",
-        f"port kernels launched in the window: hamming_matrix "
-        f"{matching.hamming_matrix.launches - launches0[0]}, grouped_bilinear_stack "
-        f"{patch_sample.grouped_bilinear_stack.launches - launches0[1]}",
-        "top device kernels (name | executions | device ms | share of device time):",
-    ]
-    ranked = sorted(kernels, key=dev_us, reverse=True)
-    for e in ranked[:25]:
-        lines.append(f"  {e.key[:90]:<90} | {e.count:>7} | {dev_us(e) / 1e3:>9.3f} | "
-                     f"{100 * dev_us(e) / 1e3 / dev_ms:>5.2f}%")
-    lines.append("the port's own kernels (name | executions | device ms | share | us per "
-                 "execution):")
-    for e in ranked:
-        if any(k in e.key for k in PORT_KERNELS):
-            lines.append(f"  {e.key[:90]:<90} | {e.count:>7} | {dev_us(e) / 1e3:>9.3f} | "
-                         f"{100 * dev_us(e) / 1e3 / dev_ms:>5.2f}% | {dev_us(e) / e.count:.2f}")
+    lines = breakdown(prof, wall_ms, n, f"frames {args.start}..{args.end - 1} ({n} frames, "
+                                        f"{len(slam.map.keyframes) - n_kf0} keyframe "
+                                        f"insertions)")
+    lines.insert(2, f"port kernels launched in the window: hamming_matrix "
+                    f"{matching.hamming_matrix.launches - launches0[0]}, grouped_bilinear_stack "
+                    f"{patch_sample.grouped_bilinear_stack.launches - launches0[1]}")
     print("\n".join(lines))
     return segment_sum_ab(text_setup, args.frames, card)
 

@@ -28,6 +28,8 @@ Two comparisons:
   normal within cos > 0.9 of the true plane.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -285,12 +287,33 @@ def test_unported_paths_raise():
         slam.save_checkpoint("unused.npz")
     with pytest.raises(NotImplementedError):
         slam.load_checkpoint("unused.npz")
-    # the loop closer's two gates: the first keyframe that passes them raises
-    slam.map.keyframes = [None] * cfg.loop.min_kfs_before_loop
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        slam._on_keyframe(cfg.loop.min_kfs_before_loop - 1)
-    slam.map.keyframes = [None] * (cfg.loop.min_kfs_before_loop - 1)
-    slam._on_keyframe(cfg.loop.min_kfs_before_loop - 2)  # below the gate: no-op
+
+
+@pytest.mark.parametrize("no_text", [False, True])
+def test_keyframe_hook_runs_loop_closer(no_text):
+    """With text on, every new keyframe runs the loop closer once (JAX
+    system.py:38-41); the closer does no work below its two keyframe gates
+    and starts (the word threshold) once past them, in the default
+    configuration (20 keyframes) too. Under noText it never runs."""
+    for cfg in (_cfg(tcfg), tcfg.TextSLAMConfig()):
+        cfg = dataclasses.replace(cfg, no_text=no_text)
+        slam = TextSLAM(cfg, device="cpu")
+        lc = slam.loop_closer
+        runs, started = [], []
+        run = lc.run
+        lc.run = lambda kid: runs.append(kid) or run(kid)
+        lc._thresh_words = lambda kid: started.append(kid) or (-1, set(), False)
+        n = cfg.loop.min_kfs_before_loop
+        slam.map.keyframes = [None] * (n - 1)
+        slam._on_keyframe(n - 2)  # below the gate: no work
+        slam.map.keyframes = [None] * n
+        slam._on_keyframe(n - 1)  # past both gates
+        lc.last_loop_kid = n - 1
+        slam._on_keyframe(n)  # within min_kfs_between_loops of the last loop
+        if no_text:
+            assert runs == [] and started == []
+        else:
+            assert runs == [n - 2, n - 1, n] and started == [n - 1]
 
 
 def test_entry_points_refuse_cuda_without_gpu():

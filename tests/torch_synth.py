@@ -214,8 +214,8 @@ def _qexp(w: np.ndarray) -> np.ndarray:
 
 
 def camera_path(n_frames: int, kind="lateral"):
-    """Ground-truth Tcw poses [N, 7] (the `lateral` and `forward` paths of
-    synth.camera_path)."""
+    """Ground-truth Tcw poses [N, 7] (the `lateral`, `forward` and
+    `outback` paths of synth.camera_path)."""
     poses = []
     for i in range(n_frames):
         s = i / max(n_frames - 1, 1)
@@ -225,6 +225,11 @@ def camera_path(n_frames: int, kind="lateral"):
         elif kind == "forward":
             t_wc = np.array([0.2 * s, 0.0, 1.5 * s])
             w = np.array([0.0, 0.05 * s, 0.0])
+        elif kind == "outback":
+            # out along +x and back to the start (the loop-closure fixture)
+            u = 2 * s if s <= 0.5 else 2 * (1 - s)
+            t_wc = np.array([1.0 * u, 0.05 * np.sin(np.pi * u), 0.15 * u])
+            w = np.array([0.0, -0.2 * u, 0.0])
         else:
             raise ValueError(kind)
         Twc = np.concatenate([_qexp(w), t_wc]).astype(np.float32)

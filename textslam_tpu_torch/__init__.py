@@ -6,9 +6,12 @@ reference. Ported: the scene-only pipeline (`Exp noText`) and the text
 pipeline of the default configuration: frame build, descriptor matching on
 a hand-written CUDA Hamming kernel, pose tracking chained with the joint
 scene+text photometric refinement, two-view initialization, the text-object
-lifecycle, and the windowed joint point+text bundle adjustment whose
-photometric rows sample through a hand-written CUDA region sampler. Loop
-closing, checkpointing, the CLI and multi-device paths are not ported yet.
+lifecycle, the windowed joint point+text bundle adjustment whose
+photometric rows sample through a hand-written CUDA region sampler, and
+semantic loop closing (Levenshtein detection on text strings, Sim3 RANSAC
+and refinement, landmark fusion, the Sim3 pose graph, the global and
+landmark-only bundle adjustments). Checkpointing, the CLI and multi-device
+paths are not ported yet.
 
 Plain tensor code is PyTorch; every Pallas kernel of the JAX package becomes
 a hand-written Hopper kernel under `csrc/`. The package never imports jax or

@@ -14,7 +14,9 @@ textslam_tpu/frontend/text.py along the per-frame chained path.
 - label data association of detections, semantic string fusion and the
   good/bad demotion counters;
 - the coarse-to-fine windowed joint BA schedule at keyframe insertion
-  (fused_ba_schedule).
+  (fused_ba_schedule);
+- the loop-time theta pass of the landmark-only refinement at global-map
+  scale (landmark_theta_pass).
 
 The JAX package compiles each `fused_*` program into one XLA executable;
 here they are plain functions on tensors that run eagerly, with the same
@@ -26,13 +28,13 @@ the lower index as lax.top_k does. Every host->device crossing names its
 dtype.
 
 Not here: the gate-only per-frame hook of frames without a pyramid
-(on_frame_tracked; with text on every frame has one), the per-level
-windowed BA of the device-mesh path (build_text_obs) and the loop-time
-landmark theta pass; see ROADMAP.
+(on_frame_tracked; with text on every frame has one) and the per-level
+windowed BA of the device-mesh path (build_text_obs); see ROADMAP.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional
 
 import numpy as np
@@ -48,6 +50,8 @@ from ..ops.zncc import zncc_gate
 from ..solver import ba
 from ..utils.profiling import phase
 from .tracking import _bool, _f32, _i64, pad_tier
+
+log = logging.getLogger(__name__)
 
 # INTERVAL8 neighbour offsets in pixels
 INTERVAL8 = np.array(
@@ -588,6 +592,9 @@ class TextFrontend:
         self._pool_version = 0
         self._pool_dev_cache = {}  # (version, Tt) -> tensors
         self._imm_rr = 0  # round-robin cursor of the maturation budget
+        # optional [n_texts]-mask filter of the live objects the gates and
+        # the per-frame hook see (tests inject drift / amnesia here)
+        self.pool_mask_hook = None
 
     # ------------------------------------------------------------------
     def _kf_has_pyr(self, kid: int) -> bool:
@@ -896,6 +903,8 @@ class TextFrontend:
         thetas[:n] = m.tx_theta[:n]
         hposes[:n] = m.kf_pose[m.tx_host[:n].clip(0)]
         live[:n] = m.tx_valid[:n] & (m.tx_state[:n] != TEXT_BAD)
+        if self.pool_mask_hook is not None:
+            live[:n] &= self.pool_mask_hook(n)
         good[:n] = m.tx_state[:n] == TEXT_GOOD
         dev = self.device
         return (_f32(quads, dev), _f32(thetas, dev), _f32(hposes, dev), _bool(live, dev),
@@ -1358,6 +1367,117 @@ class TextFrontend:
         if ok and np.isfinite(H).all() and np.linalg.det(H) > 1e-12:
             m.tx_cov[tid] = np.linalg.inv(H)  # theta covariance
         return th, ok
+
+    def landmark_theta_pass(self) -> int:
+        """The theta half of the loop-time landmark-only refinement at
+        global-map scale (levels 3..0, iters_landmark, Huber huber_theta, no
+        text gate). With every pose fixed the theta blocks decouple, so the
+        GOOD objects solve independently, in chunks whose union of observing
+        keyframes stays within landmark_chunk_kfs (at most 16 objects each);
+        each object uses all its observing keyframes whose observation was
+        not gated out. Returns the number of objects refined."""
+        m = self.map
+        scfg = self.cfg.solver
+        tgt_lists = {}
+        for tid in range(m.n_texts):
+            if not m.tx_valid[tid] or m.tx_state[tid] != TEXT_GOOD:
+                continue
+            host_kid = int(m.tx_host[tid])
+            kfs = [k for k in m.kfs_observing_text(tid)
+                   if k != host_kid and self._kf_has_pyr(k) and m.tx_obs_good.get((k, tid), True)]
+            if kfs:
+                tgt_lists[tid] = kfs
+        # host-order grouping: objects hosted near each other share observers
+        tids = sorted(tgt_lists, key=lambda t: int(m.tx_host[t]))
+        chunks, cur, cur_kfs = [], [], set()
+        for tid in tids:
+            ks = set(tgt_lists[tid])
+            if cur and (len(cur_kfs | ks) > scfg.landmark_chunk_kfs or len(cur) >= 16):
+                chunks.append(cur)
+                cur, cur_kfs = [], set()
+            cur.append(tid)
+            cur_kfs |= ks
+        if cur:
+            chunks.append(cur)
+        levels = tuple(self.cfg.pyramid.landmark_levels)
+        n_upd = 0
+        for chunk in chunks:
+            th = self._theta_chunk_solve(chunk, tgt_lists, levels, scfg.iters_landmark,
+                                         scfg.huber_theta)
+            for i, tid in enumerate(chunk):
+                if np.isfinite(th[i]).all() and np.linalg.norm(th[i]) > 1e-6:
+                    m.tx_theta[tid] = th[i]
+                    n_upd += 1
+        if tids:
+            log.info("[loop] landmark theta pass: %d/%d objects refined in %d chunks",
+                     n_upd, len(tids), len(chunks))
+        return n_upd
+
+    def _theta_chunk_solve(self, chunk, tgt_lists, levels, n_iters, huber) -> np.ndarray:
+        """One chunk of independent theta-only solves over all observing KFs
+        per object (fused_theta_optimize_all, no current frame). The level
+        stacks take each keyframe's resident device pyramid, or else upload
+        just the level crop of its host mirror (no LRU upload of whole
+        pyramids). Returns thetas [N, 3] aligned with `chunk`."""
+        m = self.map
+        cam = self.cfg.camera
+        scfg = self.cfg.solver
+        dev = self.device
+        img_of = {}
+        for tid in chunk:
+            for k in tgt_lists[tid]:
+                img_of.setdefault(k, len(img_of))
+        N = pad_tier(len(chunk), 4)
+        Kt = pad_tier(max(len(tgt_lists[t]) for t in chunk), 4)
+        M = pad_tier(len(img_of), 4)
+        L = self.n_levels
+        F = self.cfg.text.max_features_per_level
+        poses = np.zeros((M, 7), np.float32)
+        poses[:, 0] = 1.0
+        for k, i in img_of.items():
+            poses[i] = m.kf_pose[k]
+        tgt_img = np.zeros((N, Kt), np.int64)
+        tgt_valid = np.zeros((N, Kt), bool)
+        host_poses = np.zeros((N, 7), np.float32)
+        host_poses[:, 0] = 1.0
+        quads0 = np.zeros((N, 4, 2), np.float32)
+        theta0 = np.zeros((N, 3), np.float32)
+        theta0[:, 2] = -1.0
+        obj_valid = np.zeros(N, bool)
+        feat_uv = np.zeros((N, L, F, 2), np.float32)
+        feat_ref = np.zeros((N, L, F, 8), np.float32)
+        fvk = np.zeros((N, Kt, L, F), bool)
+        for i, tid in enumerate(chunk):
+            kfs = tgt_lists[tid]
+            tgt_img[i, : len(kfs)] = [img_of[k] for k in kfs]
+            tgt_valid[i, : len(kfs)] = True
+            host_poses[i] = m.kf_pose[int(m.tx_host[tid])]
+            quads0[i] = m.tx_quad[tid]
+            theta0[i] = m.tx_theta[tid]
+            obj_valid[i] = True
+            feat_uv[i] = m.tx_feat_uv[tid]
+            feat_ref[i] = m.tx_feat_ref[tid]
+            for j, k in enumerate(kfs):
+                fvk[i, j] = self._feat_valid_at(tid, k)
+        shapes = m.keyframes[next(iter(img_of))].pyr_shapes
+        imgs_levels = []
+        for level in levels:
+            h, w = int(shapes[level][0]), int(shapes[level][1])
+            st = torch.zeros((M, h, w, 3), device=dev)
+            for k, i in img_of.items():
+                kf = m.keyframes[k]
+                if kf.pyr_dev is not None:
+                    st[i] = kf.pyr_dev[level, :h, :w, :3]
+                elif kf.pyr_data is not None:
+                    st[i] = _f32(kf.pyr_data[level, :h, :w, :3], dev)
+            imgs_levels.append(st)
+        th, _, _ = fused_theta_optimize_all(
+            _f32(theta0, dev), _f32(host_poses, dev), _f32(quads0, dev), _f32(poses, dev),
+            _i64(tgt_img, dev), _bool(tgt_valid, dev), _bool(obj_valid, dev),
+            _f32(feat_uv, dev), _f32(feat_ref, dev), _bool(fvk, dev), tuple(imgs_levels),
+            cam.fx, cam.fy, cam.cx, cam.cy, levels=levels, n_iters=n_iters,
+            huber_theta=huber, weight_text=scfg.weight_text)
+        return th.cpu().numpy()
 
     def _semantic_conditions(self):
         """Demotion: a GOOD object stays GOOD only while good > 2, good *

@@ -9,7 +9,10 @@ Port of textslam_tpu/frontend/tracking.py:
 - SearchForTriangular + CheckTriangular -> one masked match + batched DLT;
 - LocalBundleAdjustment -> solver.ba over the sliding window with frozen
   out-of-window hosts, joint with the photometric text rows
-  (frontend.text.fused_ba_schedule) when the text frontend is on.
+  (frontend.text.fused_ba_schedule) when the text frontend is on;
+- the loop closer's global passes through the same _local_ba: the
+  scene-only BA over every keyframe and the landmark-only refinement
+  (all poses fixed, the OptimizeLandmarker schedule).
 
 Host Python does the bookkeeping (numpy map); every crossing to the device
 names its dtype (float32 / int64 / bool, descriptors as int32 bits), since
@@ -245,6 +248,9 @@ class Tracker:
         self.trajectory = []  # (timestamp, Tcw) per frame
         self.text_frontend = None  # wired by the system when text is on
         self.loop_hook = None  # called with each new keyframe id
+        # optional [P]-mask filter of the matching candidates (tests inject
+        # drift / amnesia here)
+        self.pt_candidate_hook = None
 
     # ------------------------------------------------------------------
     def process(self, frame: Frame) -> bool:
@@ -449,25 +455,28 @@ class Tracker:
 
     def _narrow_to_local_map(self, frame: Frame, pt_valid: np.ndarray):
         """Local-map cap: narrow the candidates to points hosted in the
-        local_map_kf_cap most-covisible KFs of the nearest KF (the JAX
-        version adds its loop edges; there are none without loop closing).
-        Mutates pt_valid in place and returns it."""
+        local_map_kf_cap most-covisible KFs of the nearest KF, plus its loop
+        edges. Mutates pt_valid in place and returns it."""
         m = self.map
         near = m.nearest_kfs(frame.frame_id, 1)[0]
         K = len(m.keyframes)
         order = np.argsort(-m.M1[near, :K])
         local = set(order[: self.cfg.map.local_map_kf_cap].tolist()) | {near}
+        local.update(m.keyframes[near].loop_edges)
         host_ok = np.isin(m.pt_host[: m.n_points], np.fromiter(local, np.int64))
         pt_valid[: m.n_points] &= host_ok
         return pt_valid
 
     def _candidate_valid(self, frame: Frame, P: int) -> np.ndarray:
         """Padded [P] candidate mask: live non-bad points, covisibility-
-        narrowed once the map outgrows half its pool."""
+        narrowed once the map outgrows half its pool, then the optional
+        pt_candidate_hook."""
         m = self.map
         pt_valid = _pad(m.pt_valid[: m.n_points] & ~m.pt_bad[: m.n_points], P, False)
         if m.n_points > self.cfg.map.max_points // 2 and m.keyframes:
             pt_valid = self._narrow_to_local_map(frame, pt_valid)
+        if self.pt_candidate_hook is not None:
+            pt_valid = self.pt_candidate_hook(pt_valid)
         return pt_valid
 
     def _track_step_args(self, frame: Frame, guess: np.ndarray, radius_scale: float = 1.0):
@@ -635,9 +644,17 @@ class Tracker:
             lam_down=scfg.lm_lambda_down, lam_min=scfg.lm_min_lambda,
             lam_max=scfg.lm_max_lambda, no_free_poses=no_free_poses)
 
-    def _local_ba(self, window_kids, fix, init_ba: bool = False):
+    def _local_ba(self, window_kids, fix, init_ba: bool = False,
+                  scene_only: bool = False, landmark_only: bool = False):
         """Windowed joint BA; hosts outside the window are frozen. The init
-        BA (two KFs) runs unweighted with the init Huber, 3 x iters."""
+        BA (two KFs) runs unweighted with the init Huber, 3 x iters.
+
+        scene_only leaves the text rows out (the loop closer's global BA);
+        landmark_only runs the OptimizeLandmarker schedule: all poses fixed
+        (the no-free-poses solver path), levels 3..0, iters_landmark per
+        level, Huber huber_rho on the rho rows and huber_theta on the theta
+        rows, the scene gate at chi2_mono_global, and the text gate only
+        with text_outlier_landmark (at chi2_text_landmark)."""
         m = self.map
         cam = self.cfg.camera
         scfg = self.cfg.solver
@@ -712,8 +729,11 @@ class Tracker:
             rho_free=_bool(rho_free, dev),
             scene=scene, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
         )
-        n_it = scfg.iters_per_level * (3 if init_ba else 2)
-        huber = scfg.huber_scene_init if init_ba else scfg.huber_scene_pose
+        if landmark_only:
+            n_it, huber = scfg.iters_landmark, scfg.huber_rho
+        else:
+            n_it = scfg.iters_per_level * (3 if init_ba else 2)
+            huber = scfg.huber_scene_init if init_ba else scfg.huber_scene_pose
         # all-poses-fixed problems take the no-free-poses solver path
         no_free = not pose_free.any()
 
@@ -722,11 +742,13 @@ class Tracker:
         # instead (TextFrontend.refine_init_thetas)
         tf = self.text_frontend
         text_part = None
-        if tf is not None and (not init_ba or scfg.joint_init_ba):
+        if tf is not None and not scene_only and (not init_ba or scfg.joint_init_ba):
             text_part = tf.ba_text_batches(window_kids, {k: i for i, k in enumerate(window_kids)}, K)
         fused_inputs = theta_meta = None
-        levels = self.cfg.pyramid.init_ba_levels if init_ba else self.cfg.pyramid.ba_levels
+        levels = (self.cfg.pyramid.landmark_levels if landmark_only
+                  else self.cfg.pyramid.init_ba_levels if init_ba else self.cfg.pyramid.ba_levels)
         F = self.cfg.text.max_features_per_level
+        gate_on = text_part is not None and (not landmark_only or scfg.text_outlier_landmark)
         if text_part is not None:
             pairs, tids, tid_to_lm = text_part
             Tn = pad_tier(len(tids), minimum=64)
@@ -750,14 +772,17 @@ class Tracker:
                     prob, fi["rows"], fi["pair_quads"], fi["pair_lm"], fi["pair_tgt"],
                     fi["pair_host"], fi["pair_hiw"], fi["pair_hpose"], fi["feat_uv_lv"],
                     fi["ref_lv"], fi["fvalid_lv"], fi["imgs_lv"],
-                    cam.fx, cam.fy, cam.cx, cam.cy, levels=levels, n_iters=scfg.iters_per_level,
-                    huber_scene=huber, huber_text=scfg.huber_text,
+                    cam.fx, cam.fy, cam.cx, cam.cy, levels=levels,
+                    n_iters=scfg.iters_landmark if landmark_only else scfg.iters_per_level,
+                    huber_scene=huber,
+                    # theta rows: Huber 2.0 in the landmark pass, 3.0 in the window
+                    huber_text=scfg.huber_theta if landmark_only else scfg.huber_text,
                     weight_text=1.0 if init_ba else scfg.weight_text,  # PyrIniBA is unweighted
-                    pair_feat=F, gate=True, no_free_poses=no_free,
+                    pair_feat=F, gate=gate_on, no_free_poses=no_free,
                     lam0=scfg.lm_lambda_init, lam_up=scfg.lm_lambda_up,
                     lam_down=scfg.lm_lambda_down, lam_min=scfg.lm_min_lambda,
                     lam_max=scfg.lm_max_lambda).cpu().numpy()
-            gate_outs = [(lv, fi["Np"] * F * 16) for lv in levels]
+            gate_outs = [(lv, fi["Np"] * F * 16) for lv in levels] if gate_on else []
         else:
             with phase("ba.solve_scene"):
                 st = self._solve(prob, n_iters=n_it, huber_scene=huber, no_free_poses=no_free)
@@ -790,21 +815,24 @@ class Tracker:
                     m.tx_theta[t] = theta[i]
         for level, n in gate_outs:
             block = packed[off: off + n].reshape(-1, 16)
-            self._apply_text_gate(pairs, level, block[: len(pairs["tids"]) * F])
+            self._apply_text_gate(pairs, level, block[: len(pairs["tids"]) * F],
+                                  gate=scfg.chi2_text_landmark if landmark_only else None)
             off += n
-        gate = scfg.chi2_mono_global if len(fix) == len(window_kids) else scfg.chi2_mono_pose
+        # the global and landmark-only passes gate at chi2_mono_global
+        all_fixed = landmark_only or len(fix) == len(window_kids)
+        gate = scfg.chi2_mono_global if (scene_only or all_fixed) else scfg.chi2_mono_pose
         bad_idx = np.nonzero(chi2_px > gate)[0]
         for kid in np.unique(kf_of_obs[bad_idx]):
             rows = bad_idx[kf_of_obs[bad_idx] == kid]
             m.keyframes[kid].obs_good[kp_of_obs[rows]] = False
         np.add.at(m.pt_bad_obs, point_l[bad_idx], 1)
 
-    def _apply_text_gate(self, pairs, level: int, packed: np.ndarray):
+    def _apply_text_gate(self, pairs, level: int, packed: np.ndarray, gate=None):
         """Host half of the text chi2 gate: packed [n_pairs*F, 16] = (|err| 8 |
         ok 8) rows. A feature observation is bad when any of its 8 normalized
-        sample errors exceeds chi2Text[level]; the whole (KF, object)
-        observation goes bad when more than text_bad_ratio of its features
-        are bad."""
+        sample errors exceeds chi2Text[level] (or the flat `gate`); the whole
+        (KF, object) observation goes bad when more than text_bad_ratio of
+        its features are bad."""
         m = self.map
         scfg = self.cfg.solver
         F = self.cfg.text.max_features_per_level
@@ -812,7 +840,8 @@ class Tracker:
         err = packed[..., :8].reshape(n_pairs, F, 8)
         ok = packed[..., 8:].reshape(n_pairs, F, 8) > 0.5
         used = ok.any(-1)  # features contributing at this level
-        bad_feat = ((err > scfg.chi2_text_levels[level]) & ok).any(-1) & used
+        chi = scfg.chi2_text_levels[level] if gate is None else gate
+        bad_feat = ((err > chi) & ok).any(-1) & used
         for i, (tid, kid) in enumerate(zip(pairs["tids"], pairs["target_kids"])):
             fg = m.tx_feat_good.get((kid, tid))
             if fg is None:

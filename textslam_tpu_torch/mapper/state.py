@@ -12,8 +12,9 @@ pyramid stays on the device while the keyframe is in the BA window (+8);
 older keyframes keep only the host mirror, uploaded again on demand through
 a small LRU (kf_pyr_dev).
 
-Not here yet: loop edges, point and text fusion (loop closing), the native
-covisibility product and its sharded variant (the numpy product is used).
+Loop closing fuses duplicated landmarks (replace_point / replace_text) and
+records loop edges on both keyframes. Not here yet: the native covisibility
+product and its sharded variant (the numpy product is used).
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ class Keyframe:
     det_quads: Optional[np.ndarray] = None  # [D, 4, 2] float32 corners
     det_text: Optional[list] = None  # [D] TextDetection records
     det_object: Optional[np.ndarray] = None  # [D] int32 text object id or -1
+    # keyframes this one closed a loop with
+    loop_edges: List[int] = dataclasses.field(default_factory=list)
 
 
 class SlamMap:
@@ -260,6 +263,28 @@ class SlamMap:
         p_r = self.pt_ray[pids] / rho[:, None]
         return se3_np.apply(se3_np.inverse(self.kf_pose[self.pt_host[pids]]), p_r).astype(np.float32)
 
+    def replace_point(self, old_pid: int, new_pid: int, rebuild: bool = False):
+        """Loop fusion: rewire every observation of old into new through the
+        per-point registry (O(observations of the point)). Covisibility is
+        rebuilt by the caller after the whole fusion batch."""
+        obs_old = self.pt_obs.pop(old_pid, {})
+        obs_new = self.pt_obs.setdefault(new_pid, {})
+        for kid, kp_idx in obs_old.items():
+            kf = self.keyframes[kid]
+            if kf.kp_point[kp_idx] != old_pid:
+                continue  # stale registry entry (keypoint was rebound)
+            if kid in obs_new:
+                kf.kp_point[kp_idx] = -1  # duplicate obs in this KF: drop
+            else:
+                kf.kp_point[kp_idx] = new_pid
+                obs_new[kid] = kp_idx
+                self.pt_n_obs[new_pid] += 1
+        self.pt_valid[old_pid] = False
+        self.pt_bad[old_pid] = True
+        self.pt_n_obs[old_pid] = 0
+        if rebuild:
+            self.rebuild_covis_m1()
+
     # ---------------- text objects ----------------
 
     def add_text(self, host_kid: int, theta, quad, string: str, score: float, lang: int,
@@ -300,8 +325,46 @@ class SlamMap:
         if kf.det_object is not None and det_idx < len(kf.det_object):
             kf.det_object[det_idx] = tid
 
+    def text_obs_of_kf(self, kid: int) -> List[tuple]:
+        return [(t, d) for t, d in self.tx_obs_by_kid.get(kid, {}).items()]
+
     def kfs_observing_text(self, tid: int) -> List[int]:
         return sorted(self.tx_obs_by_tid.get(tid, {}))
+
+    def rebuild_text_obs_index(self):
+        """Recreate the secondary indexes and the incidence from the
+        canonical tx_obs dict."""
+        self.tx_obs_by_kid = {}
+        self.tx_obs_by_tid = {}
+        self.tx_inc[:] = False
+        for (k, t), d in self.tx_obs.items():
+            self.tx_obs_by_kid.setdefault(k, {})[t] = d
+            self.tx_obs_by_tid.setdefault(t, {})[k] = d
+            self.tx_inc[t, k] = True
+
+    def replace_text(self, old_tid: int, new_tid: int):
+        """Loop fusion for text objects: old's observations move to new
+        (where new is not observed there yet, inheriting new's feature
+        state); old becomes invalid and BAD."""
+        for k, d in list(self.tx_obs_by_tid.get(old_tid, {}).items()):
+            self.tx_obs.pop((k, old_tid), None)
+            self.tx_obs_by_kid.get(k, {}).pop(old_tid, None)
+            self.tx_obs_good.pop((k, old_tid), None)
+            self.tx_feat_good.pop((k, old_tid), None)
+            if (k, new_tid) not in self.tx_obs:
+                self.tx_obs[(k, new_tid)] = d
+                self.tx_obs_by_kid.setdefault(k, {})[new_tid] = d
+                self.tx_obs_by_tid.setdefault(new_tid, {})[k] = d
+                self.tx_inc[new_tid, k] = True
+                self.tx_obs_good[(k, new_tid)] = True
+                self.tx_feat_good[(k, new_tid)] = self.tx_feat_valid[new_tid].copy()
+                kf = self.keyframes[k]
+                if kf.det_object is not None and d < len(kf.det_object):
+                    kf.det_object[d] = new_tid
+        self.tx_obs_by_tid.pop(old_tid, None)
+        self.tx_inc[old_tid] = False
+        self.tx_valid[old_tid] = False
+        self.tx_state[old_tid] = TEXT_BAD
 
     # ---------------- covisibility ----------------
 
@@ -359,6 +422,20 @@ class SlamMap:
             np.fill_diagonal(prod, 0)
             M[:K, :K] = prod
 
+    def covisible_kfs_sorted(self, kid: int):
+        """(kids, weights) of the KFs with M1[kid] > 0, by weight descending
+        (ties in id order)."""
+        K = len(self.keyframes)
+        w = self.M1[kid, :K].copy()
+        w[kid] = 0
+        nz = np.nonzero(w > 0)[0]
+        order = nz[np.argsort(-w[nz], kind="stable")]
+        return order, w[order]
+
+    def covisible_prev(self, kid: int) -> np.ndarray:
+        """Previous KFs (id < kid) with M1 covisibility > 0."""
+        return np.nonzero(self.M1[kid, :kid] > 0)[0]
+
 
 _MAP_ARRAYS = ("kf_pose", "kf_valid", "pt_host", "pt_ray", "pt_rho", "pt_valid", "pt_bad",
                "pt_desc", "pt_desc_latest", "pt_desc_second", "pt_good_obs", "pt_bad_obs",
@@ -367,7 +444,7 @@ _MAP_ARRAYS = ("kf_pose", "kf_valid", "pt_host", "pt_ray", "pt_rho", "pt_valid",
                "tx_num_obvs", "tx_cov", "tx_feat_uv", "tx_feat_ref", "tx_feat_valid", "tx_inc")
 _KF_FIELDS = ("kid", "frame_id", "timestamp", "kp_uv", "kp_level", "kp_angle", "kp_desc",
               "kp_valid", "kp_point", "obs_good", "pyr_data", "pyr_shapes", "det_quads",
-              "det_text", "det_object")
+              "det_text", "det_object", "loop_edges")
 
 
 def slam_map_from_numpy(fields: Mapping, cfg: TextSLAMConfig, *, device) -> SlamMap:
@@ -404,6 +481,7 @@ def slam_map_from_numpy(fields: Mapping, cfg: TextSLAMConfig, *, device) -> Slam
         d = kf if isinstance(kf, Mapping) else vars(kf)
         rec = {k: (np.array(d[k]) if isinstance(d[k], np.ndarray) else d.get(k))
                for k in _KF_FIELDS}
+        rec["loop_edges"] = [int(e) for e in rec["loop_edges"] or ()]
         if rec["det_text"] is not None:
             rec["det_text"] = [TextDetection(quad=np.asarray(t.quad, np.float32), text=t.text,
                                              score=float(t.score), lang=int(t.lang))

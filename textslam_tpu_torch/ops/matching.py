@@ -98,29 +98,28 @@ def _hamming_cuda(d1: torch.Tensor, d2: torch.Tensor,
 hamming_matrix.launches = 0
 
 
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    """SWAR popcount of int64 values in [0, 2^32)."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+def _bits(d: torch.Tensor) -> torch.Tensor:
+    """[N, 8] int32 descriptors -> [N, 256] float32 0/1 bits."""
+    w = d.long() & 0xFFFFFFFF
+    shifts = torch.arange(32, device=d.device)
+    return ((w[:, :, None] >> shifts) & 1).reshape(d.shape[0], WORDS * 32).float()
 
 
 def hamming_matrix_plain(d1: torch.Tensor, d2: torch.Tensor,
                          chunk_elems: int = 1 << 22) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: XOR + SWAR popcount.
-
-    Words widen to int64 and are masked to their low 32 bits first, so no
-    arithmetic right shift ever sees a negative int32. Rows go in chunks of
-    about `chunk_elems` int64 intermediates (32 MB) to bound memory."""
+    """Plain PyTorch twin of the kernel: H = popc(a) + popc(b) - 2 popc(a AND
+    b), with popc(a AND b) a float32 product of the 0/1 bit matrices (the
+    kernel's binary MMA; sums of at most 256 ones are exact in float32).
+    Rows go in chunks of `chunk_elems` // (N2 * 8) to bound memory."""
     n1, n2 = d1.shape[0], d2.shape[0]
-    a = d1.long() & 0xFFFFFFFF
-    b = d2.long() & 0xFFFFFFFF
+    b2 = _bits(d2)
+    pop2 = b2.sum(-1)
     out = torch.empty((n1, n2), dtype=torch.int32, device=d1.device)
     rows = max(1, chunk_elems // max(n2 * WORDS, 1))
     for s in range(0, n1, rows):
-        x = a[s : s + rows, None, :] ^ b[None, :, :]
-        out[s : s + rows] = _popcount32(x).sum(dim=-1).to(torch.int32)
+        b1 = _bits(d1[s : s + rows])
+        both = b1 @ b2.T
+        out[s : s + rows] = (b1.sum(-1)[:, None] + pop2[None, :] - 2 * both).to(torch.int32)
     return out
 
 

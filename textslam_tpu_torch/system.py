@@ -1,15 +1,9 @@
 """System façade: the `TextSLAM` object a user drives frame by frame.
 
 Port of textslam_tpu/system.py: construct map + tracker (+ the text frontend
-unless `Exp noText`) on an explicit device, feed frames with their text
-detections, write TUM output.
-
-Loop closing is not ported yet. With text on, the JAX package runs its loop
-closer at every keyframe, and the closer returns before doing any work while
-the map holds fewer than `loop.min_kfs_before_loop` keyframes or fewer than
-`loop.min_kfs_between_loops` keyframes have passed since the last loop. This
-port keeps those two gates and raises NotImplementedError at the first
-keyframe that passes them, instead of silently running without loop closing.
+unless `Exp noText`) and the loop closer on an explicit device, feed frames
+with their text detections, write TUM output. With text on, the loop closer
+runs at every new keyframe (it returns at once below its keyframe gates).
 """
 
 from __future__ import annotations
@@ -24,6 +18,7 @@ from .mapper.state import SlamMap
 from .frontend.frame import TextDetection, build_frame, check_device
 from .frontend.tracking import Tracker, OK
 from .io import trajectory
+from .loop.closing import LoopCloser
 
 
 class TextSLAM:
@@ -41,17 +36,13 @@ class TextSLAM:
 
             self.tracker.text_frontend = TextFrontend(cfg, self.map, self.tracker,
                                                       device=self.device)
-        self.last_loop_kid = -(10 ** 9)
+        self.loop_closer = LoopCloser(cfg, self.map, device=self.device)
+        self.loop_closer.tracker = self.tracker
         self.tracker.loop_hook = self._on_keyframe
 
     def _on_keyframe(self, kid: int):
-        lcfg = self.cfg.loop
-        if (not self.cfg.no_text and len(self.map.keyframes) >= lcfg.min_kfs_before_loop
-                and kid - self.last_loop_kid >= lcfg.min_kfs_between_loops):
-            raise NotImplementedError(
-                f"keyframe {kid} passes the loop-closing gates "
-                f"({len(self.map.keyframes)} >= {lcfg.min_kfs_before_loop} keyframes); "
-                "loop closing is not ported yet")
+        if not self.cfg.no_text:
+            self.loop_closer.run(kid)
         if self.output_dir:
             self.record_keyframes(os.path.join(self.output_dir, "keyframe_latest.txt"))
 
