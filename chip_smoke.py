@@ -63,7 +63,27 @@ Phases, each of which must pass (any failure exits non-zero):
    synchronized wall time and its parts (the checks' time left out); then
    runs landmark_theta_pass once on the post-loop map and holds the text
    bars and the kernel checks again;
-8. print per-frame and keyframe-insertion times, one JSON line describing
+8. the CLI run: 24 frames of the text world of phase 6 written to a
+   temporary directory in the reference's dataset layout (tests/torch_synth
+   write_dataset: frames stored distorted as PNG with all five row filters,
+   OCR files with a CJK and a "#" probe line on frame 5, Imlist / Imshort,
+   one yaml per experiment and scene-only ones); checks that every frame
+   decodes to the image written, that the detections read back as written,
+   that the reader's undistorted frame is a CUDA tensor equal within 1e-4
+   to the same reader's on the CPU and within tests/test_cli_e2e.py's bar
+   of the ideal render, and that a BGR frame decodes exactly and converts
+   to cv2's gray on the card; then runs `textslam_tpu_torch.cli.main` in
+   this process on the card: experiment 0 over all frames with
+   --checkpoint-every 8 (every output written, at least 3 keyframes,
+   keyframe ATE < 0.05, both kernels launched and every call held to its
+   plain version as in phase 7), the same run again with the checks off
+   (its per-frame medians of read + decode, undistortion and tracking are
+   the ones printed), a scene-only run split at frame 12 and resumed (the
+   same keyframes as the uninterrupted run, poses within 1e-3), the same
+   split with text on (ATE < 0.05), experiments 1-3 over the short list
+   (at least 2 keyframes each); prints those medians and the checkpoint's
+   save and load times and size;
+9. print per-frame and keyframe-insertion times, one JSON line describing
    the kernels, and last the JSON result line.
 
     python3 chip_smoke.py --seed-study 0-21
@@ -92,6 +112,15 @@ N_LOOP_REFEED = 3
 LOOP_FPS = 6.0
 LOOP_GATES = dict(min_kfs_before_loop=6, min_kfs_between_loops=5, num_covis_for_thresh=3)
 LOOP_ATE_MAX = 0.03  # tests/test_e2e_loop.py's post-loop keyframe ATE bar
+# the CLI run: tests/test_cli_e2e.py's fixture (distorted frames on disk,
+# its bars) on the text world of the text run (seed 0, lateral path)
+N_CLI_FRAMES, N_CLI_SHORT = 24, 12
+CLI_FPS = 10.0
+CLI_DIST = (-0.05, 0.01, 0.0, 0.0, 0.0)  # k1, k2, p1, p2, k3
+CLI_ATE_MAX = 0.05
+UNDISTORT_ERR_MAX = 6.0  # mean abs gray in the central region vs the ideal render
+UNDISTORT_DEV_ATOL = 1e-4  # gray, the reader on the card vs the same reader on the CPU
+RESUME_POSE_DIFF = 1e-3
 # Hamming shapes on the main path: tracked frames [P, 1000] for point pools
 # of 4096..32768, two-view init [3000, 3000], keyframe triangulation
 # [1000, 1000]; then ragged shapes that exercise the edge masking and the
@@ -902,7 +931,7 @@ def _sync_timer(times, key):
     return wrap
 
 
-def _kernel_checks(matching, patch_sample):
+def _kernel_checks(matching, patch_sample, label="loop"):
     """Wrap hamming_matrix, hamming_matrix_min and grouped_bilinear_stack
     (the module attributes the path calls) so that, while state["on"] is
     set, every call is also computed by its plain version on the same
@@ -943,21 +972,21 @@ def _kernel_checks(matching, patch_sample):
             out = fn(*args, **kw)
             if not state["on"]:
                 return out
+            t0 = time.perf_counter()  # the sync below is part of the check
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
             want = plain(*args, **kw)
             if name == "grouped_bilinear_stack":
                 (vals, mask), (pv, pm) = out, want
                 shape = (tuple(args[0].shape), tuple(args[2].shape[:2]))
-                check(torch.equal(mask, pm), f"loop: sampler masks differ from the plain "
+                check(torch.equal(mask, pm), f"{label}: sampler masks differ from the plain "
                                              f"version at stack {shape[0]}, [G, Q] {shape[1]}")
                 err = float((vals - pv).abs().max()) if vals.numel() else 0.0
-                check(err <= SAMPLER_ATOL, f"loop: sampler kernel vs plain max err {err} at "
+                check(err <= SAMPLER_ATOL, f"{label}: sampler kernel vs plain max err {err} at "
                                            f"stack {shape[0]}, [G, Q] {shape[1]}")
             else:
                 shape = (args[0].shape[0], args[-1].shape[0])
                 err = float((out - want).abs().max()) if out.numel() else 0.0
-                check(torch.equal(out, want), f"loop: {name} kernel != plain at {shape} "
+                check(torch.equal(out, want), f"{label}: {name} kernel != plain at {shape} "
                                               f"(max err {err})")
             st = state["stats"].setdefault(name, {"calls": 0, "max_abs_err": 0.0, "shapes": {}})
             st["calls"] += 1
@@ -1264,6 +1293,200 @@ def run_loop(card: str):
     return res
 
 
+def _cli_ate(out_dir, gt):
+    """(keyframe count, keyframe ATE) of a CLI run's keyframe.txt (TUM:
+    Twc; timestamps are frame / fps)."""
+    import torch_synth
+    from textslam_tpu_torch.geometry import se3_np
+    from textslam_tpu_torch.io.trajectory import read_tum
+
+    ts, poses_wc = read_tum(os.path.join(out_dir, "keyframe.txt"))
+    if len(ts) == 0:
+        return 0, float("inf")
+    return len(ts), torch_synth.ate_rmse(ts * CLI_FPS, se3_np.inverse(poses_wc), gt)
+
+
+def run_cli(card: str):
+    """The CLI path (phase 8): a dataset written to disk in the reference
+    layout (distorted PNG frames, OCR files, yamls), read, decoded and
+    undistorted by the port's reader and driven through
+    `textslam_tpu_torch.cli.main` on the card, with checkpoints and
+    resumes."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch_synth
+    from textslam_tpu_torch import cli
+    from textslam_tpu_torch.config import load_yaml
+    from textslam_tpu_torch.io import dataset as tds
+    from textslam_tpu_torch.io import png
+    from textslam_tpu_torch.io.trajectory import read_tum
+    from textslam_tpu_torch.ops import matching, patch_sample
+    from textslam_tpu_torch.system import TextSLAM
+
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="textslam_cli_") as root:
+        t0 = time.perf_counter()
+        gt, world, written = torch_synth.write_dataset(root, N_CLI_FRAMES, seed=0, dist=CLI_DIST,
+                                                       n_short=N_CLI_SHORT, fps=CLI_FPS)
+        print(f"cli: wrote {N_CLI_FRAMES} distorted 640x480 frames (PNG, all five row filters), "
+              f"their OCR files and the yamls in {time.perf_counter() - t0:.1f} s")
+        # 1. decode: every frame exactly the uint8 image written
+        for i, img in enumerate(written):
+            with open(os.path.join(root, "images", f"{i:04d}.png"), "rb") as f:
+                check(np.array_equal(png.decode(f.read()), img), f"cli: frame {i} decodes wrong")
+        # 2. detections: read back as written (corners rounded as the
+        # reference rounds them), the probe lines on frame 5
+        for i, pose in enumerate(gt):
+            got = tds.read_detections(tds.text_stem_for(root + "/", f"images/{i:04d}.png"))
+            want = [(d.text, 0.9, 0, np.round(np.float32([float(f"{v:.2f}") for v in
+                                                          d.quad.ravel()])).reshape(4, 2))
+                    for d in world.detections(pose)]
+            if i == 5:
+                want += [("你好餐厅", 0.5, 1, np.float32([[1, 1], [9, 1], [9, 9], [1, 9]])),
+                         ("#", 0.1, 0, np.float32([[11, 1], [19, 1], [19, 9], [11, 9]]))]
+            check(len(got) == len(want) and all(
+                (d.text, d.score, d.lang) == w[:3] and np.array_equal(d.quad, w[3])
+                for d, w in zip(got, want)), f"cli: frame {i}: detections read back wrong")
+        # 3. the undistorted frame: on the card, equal to the reader's on the
+        # CPU, near the ideal render; a BGR frame's gray conversion on the card
+        exp0 = load_yaml(os.path.join(root, "exp0.yaml"))
+        with tds.Dataset(exp0, device="cuda") as ds, tds.Dataset(exp0, device="cpu") as ds_cpu:
+            img, host = ds[5][0], ds_cpu[5][0]
+            g = written[5].astype(np.uint8)
+            bgr = np.stack([g, 255 - g, g.astype(np.int64) * 3 % 256], axis=-1).astype(np.uint8)
+            bgr_dec = png.decode(torch_synth.encode_png(bgr))
+            check(np.array_equal(bgr_dec, bgr), "cli: a BGR frame decodes wrong")
+            b, gg, r = (bgr.astype(np.int64)[..., k] for k in range(3))
+            for rgb in (False, True):
+                want = ((b, r)[rgb] * 3735 + gg * 19235 + (r, b)[rgb] * 9798 + 16384) >> 15
+                got = tds.to_gray(torch.from_numpy(bgr_dec).cuda(), rgb)
+                check(got.is_cuda and np.array_equal(got.cpu().numpy(), want),
+                      f"cli: gray conversion on the card (Camera.RGB {int(rgb)}) is not cv2's")
+            color, color_host = ds.image(bgr_dec), ds_cpu.image(bgr_dec)
+        check(img.is_cuda and img.dtype == torch.float32 and color.is_cuda,
+              f"cli: frame on {img.device}")
+        dev_err = max(float((img.cpu() - host).abs().max()),
+                      float((color.cpu() - color_host).abs().max()))
+        ideal = world.render(gt[5])
+        c = (slice(120, 360), slice(160, 480))
+        und_err = float(np.abs(img.cpu().numpy()[c] - ideal[c]).mean())
+        print(f"cli: undistorted frame 5 on {img.device}: max abs difference from the reader "
+              f"on the CPU {dev_err:.3e} (gray frame and a BGR one, bar {UNDISTORT_DEV_ATOL}); "
+              f"central mean abs error vs the ideal render {und_err:.4f} gray (bar "
+              f"{UNDISTORT_ERR_MAX})")
+        check(dev_err <= UNDISTORT_DEV_ATOL, f"cli: undistortion on the card vs the CPU {dev_err}")
+        check(und_err < UNDISTORT_ERR_MAX, f"cli: undistortion error {und_err}")
+        res.update(undistort_err=und_err, undistort_card_vs_cpu=dev_err)
+
+        # instruments: the reader's timings, the track and checkpoint times
+        datasets, times = [], {}
+
+        class Recorded(tds.Dataset):
+            image = _sync_timer(times, "undistort")(tds.Dataset.image)
+
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                datasets.append(self)
+
+        orig = (tds.Dataset, TextSLAM.track_monocular, TextSLAM.save_checkpoint,
+                TextSLAM.load_checkpoint)
+        tds.Dataset = Recorded
+        TextSLAM.track_monocular = _sync_timer(times, "track")(orig[1])
+        TextSLAM.save_checkpoint = _sync_timer(times, "save")(orig[2])
+        TextSLAM.load_checkpoint = _sync_timer(times, "load")(orig[3])
+        checks, restore_checks = _kernel_checks(matching, patch_sample, label="cli")
+
+        def run(yaml, out, *extra):
+            rc = cli.main([os.path.join(root, yaml), os.path.join(root, out), *extra])
+            check(rc == 0, f"cli: {yaml} -> {out} exited {rc}")
+
+        try:
+            # 4. the full CLI run, every kernel call held to its plain version
+            counters = {"hamming_matrix": matching.hamming_matrix,
+                        "grouped_bilinear_stack": patch_sample.grouped_bilinear_stack}
+            for fn in counters.values():
+                fn.launches = 0
+            checks["on"] = True
+            run("exp0.yaml", "out0", "--checkpoint-every", "8")
+            checks["on"] = False
+            launches = {k: fn.launches for k, fn in counters.items()}
+            out0 = os.path.join(root, "out0")
+            for name in ("keyframe.txt", "keyframe_latest.txt", "pose_F.txt", "checkpoint.npz"):
+                check(os.path.exists(os.path.join(out0, name)), f"cli: {name} not written")
+            n_kf, ate = _cli_ate(out0, gt)
+            n_latest = len(read_tum(os.path.join(out0, "keyframe_latest.txt"))[0])
+            ckpt_mb = os.path.getsize(os.path.join(out0, "checkpoint.npz")) / 2 ** 20
+            stats = checks["stats"]
+            res.update(
+                keyframes=n_kf, kf_ate=ate, launches=launches,
+                track_ms_median_checked_run=float(np.median(times["track"])),
+                checkpoint_save_ms=times["save"], checkpoint_mb=ckpt_mb,
+                calls_held={k: v["calls"] for k, v in stats.items()},
+                max_abs_err={k: v["max_abs_err"] for k, v in stats.items()})
+            print(f"cli run (exp 0, {N_CLI_FRAMES} frames, text on, --checkpoint-every 8): "
+                  f"{n_kf} KFs (keyframe_latest {n_latest}), KF ATE {ate:.6f} (bar "
+                  f"{CLI_ATE_MAX}), launches {launches}, calls held to the plain version "
+                  f"{res['calls_held']} (max abs err {res['max_abs_err']})")
+            # the same run again with the checks off: the per-frame medians
+            times["track"], times["undistort"] = [], []
+            run("exp0.yaml", "out0_timed")
+            ds = datasets[-1]
+            res.update(read_decode_ms_median=float(np.median(ds.read_ms)),
+                       undistort_ms_median=float(np.median(times["undistort"])),
+                       track_ms_median=float(np.median(times["track"])))
+            print(f"cli per-frame medians (exp 0 again, checks off): read+decode "
+                  f"{res['read_decode_ms_median']:.3f} ms (host thread), undistort "
+                  f"{res['undistort_ms_median']:.3f} ms (upload, gray and remap on the card, "
+                  f"synchronized), track {res['track_ms_median']:.3f} ms (checked run, checks "
+                  f"left out: {res['track_ms_median_checked_run']:.3f} ms); checkpoint save ms "
+                  f"{[round(x, 1) for x in times['save']]}, {ckpt_mb:.1f} MB  [{card}]")
+            check(n_latest == n_kf, f"cli: keyframe_latest has {n_latest} KFs, keyframe {n_kf}")
+            check(n_kf >= 3, f"cli: only {n_kf} keyframes")
+            check(ate < CLI_ATE_MAX, f"cli: KF ATE {ate} >= {CLI_ATE_MAX}")
+            for k, n in launches.items():
+                check(n > 0, f"cli: the {k} kernel was never launched")
+            check(stats.get("grouped_bilinear_stack", {}).get("calls", 0) > 0
+                  and sum(stats.get(k, {}).get("calls", 0)
+                          for k in ("hamming_matrix", "hamming_matrix_min")) > 0,
+                  f"cli: kernel calls not held to the plain version: {stats}")
+
+            # 5. resume, scene only: the same keyframes as the uninterrupted run
+            run("nt_full.yaml", "nt_a")
+            run("nt_short.yaml", "nt_b", "--checkpoint-every", "6")
+            run("nt_full.yaml", "nt_b", "--resume")
+            (ts_a, p_a), (ts_b, p_b) = (read_tum(os.path.join(root, d, "keyframe.txt"))
+                                        for d in ("nt_a", "nt_b"))
+            same = len(ts_a) == len(ts_b) and np.allclose(ts_a, ts_b)
+            diff = float(np.abs(p_a - p_b).max()) if same else float("inf")
+            print(f"cli resume, scene only: {len(ts_a)} / {len(ts_b)} KFs uninterrupted / "
+                  f"resumed, same timestamps {same}, max pose difference {diff:.3e} "
+                  f"(bar {RESUME_POSE_DIFF})")
+            check(len(ts_a) >= 3 and same and diff < RESUME_POSE_DIFF,
+                  "cli: the resumed scene-only run is not the uninterrupted one")
+            # 6. resume, text on
+            run("t_short.yaml", "t_b", "--checkpoint-every", "6")
+            run("exp0.yaml", "t_b", "--resume")
+            n_kf_r, ate_r = _cli_ate(os.path.join(root, "t_b"), gt)
+            print(f"cli resume, text on: {n_kf_r} KFs, KF ATE {ate_r:.6f} (bar {CLI_ATE_MAX}); "
+                  f"checkpoint load ms {[round(x, 1) for x in times['load']]}  [{card}]")
+            check(n_kf_r >= 3 and ate_r < CLI_ATE_MAX, f"cli: text-on resume KF ATE {ate_r}")
+            # 7. experiments 1-3 over the short list
+            exps = {}
+            for exp in (1, 2, 3):
+                run(f"exp{exp}.yaml", f"out{exp}")
+                exps[exp] = _cli_ate(os.path.join(root, f"out{exp}"), gt)[0]
+            print(f"cli experiments 1-3 (Imshort): keyframes {exps}")
+            check(all(n >= 2 for n in exps.values()), f"cli: experiments 1-3 keyframes {exps}")
+        finally:
+            restore_checks()
+            tds.Dataset, TextSLAM.track_monocular, TextSLAM.save_checkpoint, \
+                TextSLAM.load_checkpoint = orig
+    res.update(resume_scene_kfs=len(ts_b), resume_scene_pose_diff=diff, resume_text_kf_ate=ate_r,
+               checkpoint_load_ms=times["load"], experiment_kfs=exps)
+    return res
+
+
 def run_text_seeds(seeds, card: str):
     """The text run again under other RANSAC seeds (TextSLAMConfig.seed):
     tracking, keyframe ATE and the text-plane bars of every run; fails
@@ -1350,19 +1573,23 @@ def main() -> int:
     scene = run_scene(card)
     textrun = run_text(card)
     looprun = run_loop(card)
+    clirun = run_cli(card)
 
     ham = hamming_rows[0]  # [4096, 1000]: every tracked frame below 4096 points
     # loop-time calls held against the plain version (phase 7)
     lchk = looprun["loop_kernel_checks"]
     ham_loop = [lchk[k] for k in ("hamming_matrix", "hamming_matrix_min") if k in lchk]
     smp_loop = lchk["grouped_bilinear_stack"]
+    cli_err = clirun["max_abs_err"]
     ham = dict(ham, max_abs_err=max([r["max_abs_err"] for r in hamming_rows]
-                                    + [v["max_abs_err"] for v in ham_loop]))
+                                    + [v["max_abs_err"] for v in ham_loop]
+                                    + [cli_err.get(k, 0.0) for k in ("hamming_matrix",
+                                                                     "hamming_matrix_min")]))
     # level 0 of one frame's pyramid, G = 16: most of the path's launches
     smp = next(r for r in sampler_rows if r["case"] == "frame level view" and r["level"] == 0
                and r["groups"] == 16)
     smp = dict(smp, max_abs_err=max([r["max_abs_err"] for r in sampler_rows]
-                                    + [smp_loop["max_abs_err"]]))
+                                    + [smp_loop["max_abs_err"], cli_err["grouped_bilinear_stack"]]))
     path = [r for r in sampler_rows if r["on_path"]]
     print(f"sampler wrapper / grid_sample on the path: G=16 level 0 "
           f"{smp['ms'] / smp['library_ms']:.2f}, worst "
@@ -1382,7 +1609,10 @@ def main() -> int:
          "launches_scene_run": scene["launches"]["hamming_matrix"],
          "launches_loop_run": looprun["launches_run"]["hamming_matrix"],
          "launches_loop_closure": looprun["launches_loop_closure"]["hamming_matrix"],
-         "loop_calls_held_to_plain": sum(v["calls"] for v in ham_loop)},
+         "loop_calls_held_to_plain": sum(v["calls"] for v in ham_loop),
+         "launches_cli_run": clirun["launches"]["hamming_matrix"],
+         "cli_calls_held_to_plain": sum(clirun["calls_held"].get(k, 0)
+                                        for k in ("hamming_matrix", "hamming_matrix_min"))},
         {"name": "grouped_bilinear_stack", "route": "cuda",
          "source": "textslam_tpu_torch/csrc/patch_sample.cu",
          "replaces": "textslam_tpu/ops/pallas_kernels.py:193",
@@ -1392,7 +1622,9 @@ def main() -> int:
          "shape": {"stack": smp["stack"], "groups": smp["groups"], "Q": smp["Q"]},
          "launches_loop_run": looprun["launches_run"]["grouped_bilinear_stack"],
          "launches_loop_closure": looprun["launches_loop_closure"]["grouped_bilinear_stack"],
-         "loop_calls_held_to_plain": smp_loop["calls"]},
+         "loop_calls_held_to_plain": smp_loop["calls"],
+         "launches_cli_run": clirun["launches"]["grouped_bilinear_stack"],
+         "cli_calls_held_to_plain": clirun["calls_held"]["grouped_bilinear_stack"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -280,10 +280,10 @@ def _features(cfg, pyr, shapes, quad):
     return uv, ref, valid
 
 
-def _build(spec, cfg, state_mod, pyr_of):
+def _build(spec, cfg, state_mod, pyr_of, new_map):
     """The duplicated map: legs [0, N/2) and [N/2, N), each with its own
     points (hosted at the leg's first observing KF) and text objects."""
-    m = state_mod.SlamMap(cfg)
+    m = new_map(cfg)
     kfs = spec["kfs"]
     for k, kd in enumerate(kfs):
         n = len(kd["wid"])
@@ -339,10 +339,11 @@ def spec():
 def _systems(spec, **solver):
     """(JAX side, port side), each (cfg, map, tracker, closer)."""
     out = []
-    for mod, st, pyr_of in ((jcfg, jstate, jnp.asarray),
-                            (tcfg, tstate, lambda a: torch.tensor(a))):
+    for mod, st, pyr_of, new_map in (
+            (jcfg, jstate, jnp.asarray, jstate.SlamMap),
+            (tcfg, tstate, lambda a: torch.tensor(a), lambda c: tstate.SlamMap(c, device="cpu"))):
         cfg = _cfg(mod, **solver)
-        m = _build(spec, cfg, st, pyr_of)
+        m = _build(spec, cfg, st, pyr_of, new_map)
         if mod is jcfg:
             tr = JTracker(cfg, m)
             tr.text_frontend = JTextFrontend(cfg, m, tr)
@@ -619,9 +620,13 @@ def test_landmark_ba_on_the_card_map():
 
 
 def test_imports_load_no_jax():
-    code = ("import sys; import textslam_tpu_torch.system, textslam_tpu_torch.loop.closing; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m == 'textslam_tpu' or m.startswith('textslam_tpu.')]; "
+    """The port's modules import no jax, nothing of the JAX package, and no
+    cv2 or PIL (the GPU machine has none of them)."""
+    code = ("import sys; import textslam_tpu_torch.system, textslam_tpu_torch.loop.closing, "
+            "textslam_tpu_torch.cli, textslam_tpu_torch.io.dataset, textslam_tpu_torch.io.png, "
+            "textslam_tpu_torch.mapper.checkpoint; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'textslam_tpu', 'cv2', 'PIL')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)

@@ -188,12 +188,13 @@ def test_port_from_scratch(sequence, lockstep, tmp_path):
     assert len(ts_frames) == len(traj) and np.isfinite(poses_wc).all()
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """Multi-device raises; checkpointing is ported (a fresh system's
+    checkpoint loads back, tests/test_torch_checkpoint.py holds the rest)."""
     slam = TextSLAM(_cfg(tcfg), device="cpu")
-    with pytest.raises(NotImplementedError):
-        slam.save_checkpoint("unused.npz")
-    with pytest.raises(NotImplementedError):
-        slam.load_checkpoint("unused.npz")
+    path = str(tmp_path / "fresh.npz")
+    slam.save_checkpoint(path, extra={"frame_index": -1})
+    assert TextSLAM(_cfg(tcfg), device="cpu").load_checkpoint(path)["frame_index"] == -1
     par = tcfg.ParallelConfig(ba_devices=2)
     with pytest.raises(NotImplementedError):
         TextSLAM(dataclasses.replace(_cfg(tcfg), parallel=par), device="cpu")

@@ -1,4 +1,7 @@
-"""The cv2-free renderer (tests/torch_synth.py) held against tests/synth.py.
+"""The cv2-free renderer (tests/torch_synth.py) held against tests/synth.py,
+and its distorted render against tests/test_cli_e2e.py's (cv2.undistortPoints
+and cv2.remap): undistorted pixels within 1e-4 px, images within the same
+0.05 gray.
 
 Tolerance: 0.05 gray out of 255 on every pixel. Both renderers warp the
 same float32 textures through the same homographies; they differ only in
@@ -92,3 +95,25 @@ def test_plane_theta_matches():
         for z0 in (2.8, 7.0):
             np.testing.assert_allclose(torch_synth.plane_theta_in_cam(z0, pose),
                                        synth.plane_theta_in_cam(z0, pose), rtol=1e-5, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def cli_e2e():
+    import test_cli_e2e
+
+    return test_cli_e2e
+
+
+def test_undistort_points_matches_cv2(cli_e2e):
+    qx, qy = np.meshgrid(np.arange(synth.W, dtype=np.float64), np.arange(synth.H, dtype=np.float64))
+    und = torch_synth.undistort_points(np.stack([qx, qy], -1), torch_synth.K, cli_e2e.DIST)
+    np.testing.assert_allclose(und, cli_e2e._UND, atol=1e-4)
+
+
+@pytest.mark.parametrize("frame", [0, 10])
+def test_render_distorted_matches_cli_e2e(cli_e2e, frame):
+    pose = synth.camera_path(20)[frame]
+    rays = torch_synth.distorted_rays(cli_e2e.DIST)
+    ours = torch_synth.render_distorted(torch_synth.TextWorld(seed=1), pose, rays)
+    np.testing.assert_allclose(ours, cli_e2e.render_distorted(synth.TextWorld(seed=1), pose),
+                               atol=0.05)

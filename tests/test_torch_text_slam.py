@@ -280,13 +280,24 @@ def test_port_from_scratch(sequence):
     assert m.M2[: len(kfs), : len(kfs)].sum() > 0
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
+    """With text on, multi-device raises; checkpointing is ported: a
+    checkpoint carries the text frontend's and the loop closer's RANSAC
+    generator states, and a loaded system continues both streams."""
     cfg = _cfg(tcfg)
+    with pytest.raises(NotImplementedError):
+        TextSLAM(dataclasses.replace(cfg, parallel=tcfg.ParallelConfig(ba_devices=2)),
+                 device="cpu")
     slam = TextSLAM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        slam.save_checkpoint("unused.npz")
-    with pytest.raises(NotImplementedError):
-        slam.load_checkpoint("unused.npz")
+    gens = (slam.tracker.text_frontend._gen, slam.loop_closer._gen)
+    for g in gens:
+        torch.rand(5, generator=g)
+    path = str(tmp_path / "text.npz")
+    slam.save_checkpoint(path)
+    loaded = TextSLAM(cfg, device="cpu")
+    loaded.load_checkpoint(path)
+    for g, h in zip(gens, (loaded.tracker.text_frontend._gen, loaded.loop_closer._gen)):
+        assert torch.equal(torch.rand(3, generator=g), torch.rand(3, generator=h))
 
 
 @pytest.mark.parametrize("no_text", [False, True])

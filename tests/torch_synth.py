@@ -11,10 +11,16 @@ tests/test_torch_synth.py holds the two renderers against each other.
 Also: the text world (`TextWorld`, `render_text_sequence`, detections
 projected from the ground-truth boxes, `plane_theta_in_cam`) and
 `ate_rmse`, the Sim3-aligned ATE of synth.ate_rmse (Horn alignment), in
-numpy.
+numpy; for datasets on disk, `render_distorted` (the image a camera with
+radial-tangential distortion takes of the world, tests/test_cli_e2e.py's
+renderer without cv2) and `encode_png` (a PNG writer with a chosen filter
+per row).
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -284,3 +290,207 @@ def ate_rmse(est_ts, est_poses_cw, gt_poses_cw) -> float:
     s, R, t = _horn_alignment(gt_C, est_C)
     aligned = s * est_C @ R.T + t
     return float(np.sqrt((np.linalg.norm(aligned - gt_C, axis=-1) ** 2).mean()))
+
+
+def undistort_points(uv: np.ndarray, K_mat: np.ndarray, dist, iters: int = 20) -> np.ndarray:
+    """Ideal pinhole pixels of distorted pixels uv [..., 2]: the inverse of
+    OpenCV's k1, k2, p1, p2, k3 model by fixed-point iteration in float64
+    (cv2.undistortPoints(uv, K, dist, P=K) without OpenCV)."""
+    k1, k2, p1, p2, k3 = (float(v) for v in dist)
+    fx, fy, cx, cy = K_mat[0, 0], K_mat[1, 1], K_mat[0, 2], K_mat[1, 2]
+    xd = (np.asarray(uv, np.float64)[..., 0] - cx) / fx
+    yd = (np.asarray(uv, np.float64)[..., 1] - cy) / fy
+    x, y = xd.copy(), yd.copy()
+    for _ in range(iters):
+        r2 = x * x + y * y
+        kr = 1 + ((k3 * r2 + k2) * r2 + k1) * r2
+        x = (xd - (2 * p1 * x * y + p2 * (r2 + 2 * x * x))) / kr
+        y = (yd - (p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)) / kr
+    return np.stack([x * fx + cx, y * fy + cy], -1)
+
+
+def distorted_rays(dist, K_mat=None, size=None) -> np.ndarray:
+    """[H, W, 3] homogeneous undistorted pinhole pixels of every pixel of a
+    camera with distortion `dist` (the input of render_distorted)."""
+    Km = K if K_mat is None else K_mat
+    Wc, Hc = (W, H) if size is None else size
+    qx, qy = np.meshgrid(np.arange(Wc, dtype=np.float64), np.arange(Hc, dtype=np.float64))
+    und = undistort_points(np.stack([qx, qy], -1), Km, dist)
+    return np.concatenate([und, np.ones((Hc, Wc, 1))], -1)
+
+
+def render_distorted(world, pose_cw: np.ndarray, rays: np.ndarray, K_mat=None) -> np.ndarray:
+    """The DISTORTED camera image in one resample per plane: each pixel
+    samples the plane texture at H^-1 applied to its undistorted pinhole
+    position (`rays`, from distorted_rays), bilinear, zero outside the
+    texture (tests/test_cli_e2e.py's render_distorted)."""
+    Km = K if K_mat is None else K_mat
+    R = se3_np.qto_matrix(np.asarray(pose_cw[:4], np.float32))
+    t = pose_cw[4:]
+    img = np.zeros(rays.shape[:2], np.float32)
+    for z0, s, tex, mask, off in sorted(world.planes, key=lambda p: -p[0]):
+        th, tw = tex.shape
+        r1, r2, r3 = R[:, 0], R[:, 1], R[:, 2]
+        col3 = (r3 * z0 + t + r1 * (off[0] - tw / (2 * s)) + r2 * (off[1] - th / (2 * s)))
+        Hm = Km @ np.stack([r1 / s, r2 / s, col3], axis=1)
+        tc = rays @ np.linalg.inv(Hm).T
+        x = (tc[..., 0] / tc[..., 2]).astype(np.float32)
+        y = (tc[..., 1] / tc[..., 2]).astype(np.float32)
+        img = np.where(_sample_nearest(mask, x, y) > 0, _sample_linear(tex, x, y), img)
+    return img
+
+
+def _sample_linear(src, x, y):
+    x0, y0 = np.floor(x), np.floor(y)
+    fx, fy = x - x0, y - y0
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    h, w = src.shape
+    out = np.zeros(x.shape, np.float32)
+    for dy, wy in ((0, 1 - fy), (1, fy)):
+        for dx, wx in ((0, 1 - fx), (1, fx)):
+            xx, yy = x0 + dx, y0 + dy
+            inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+            out += np.where(inside, src[yy.clip(0, h - 1), xx.clip(0, w - 1)], 0) * (wy * wx)
+    return out
+
+
+def _sample_nearest(src, x, y):
+    xi, yi = np.rint(x).astype(np.int64), np.rint(y).astype(np.int64)
+    h, w = src.shape
+    inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    return np.where(inside, src[yi.clip(0, h - 1), xi.clip(0, w - 1)], 0)
+
+
+def _png_filter(x: np.ndarray, prior: np.ndarray, ftype: int, bpp: int) -> np.ndarray:
+    """One row's PNG filter (x, prior: the row and the row above as int16
+    bytes)."""
+    a = np.concatenate([np.zeros(bpp, np.int16), x[:-bpp]])
+    c = np.concatenate([np.zeros(bpp, np.int16), prior[:-bpp]])
+    b = prior
+    if ftype == 0:
+        pred = np.zeros_like(x)
+    elif ftype == 1:
+        pred = a
+    elif ftype == 2:
+        pred = b
+    elif ftype == 3:
+        pred = (a + b) >> 1
+    else:
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    return ((x - pred) & 255).astype(np.uint8)
+
+
+def encode_png(img: np.ndarray, filters=(0, 1, 2, 3, 4), idat_chunks: int = 1,
+               color: str = "bgr") -> bytes:
+    """PNG bytes of a uint8 / uint16 image: [H, W] gray, or [H, W, 3|4] in
+    OpenCV's BGR(A) order (color="bgr", as cv2.imwrite takes it) or stored
+    as it is (color="raw": [H, W, 2] is gray+alpha). Row r uses filter
+    filters[r % len(filters)]; the compressed stream is split over
+    idat_chunks IDAT chunks. Written per row in Python: for test data."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"encode_png: dtype {img.dtype}")
+    if img.ndim == 2:
+        img = img[:, :, None]
+    ch = img.shape[2]
+    if color == "bgr" and ch >= 3:
+        img = img[:, :, [2, 1, 0, 3][:ch]]
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    depth = 16 if img.dtype == np.uint16 else 8
+    h, w = img.shape[:2]
+    rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(np.uint8)
+    rows = rows.reshape(h, -1).astype(np.int16)
+    bpp = ch * depth // 8
+    prior = np.zeros(rows.shape[1], np.int16)
+    raw = bytearray()
+    for r in range(h):
+        t = filters[r % len(filters)]
+        raw.append(t)
+        raw += _png_filter(rows[r], prior, t, bpp).tobytes()
+        prior = rows[r]
+    comp = zlib.compress(bytes(raw), 6)
+    step = -(-len(comp) // idat_chunks)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(body, zlib.crc32(kind))))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                                         0, 0, 0))
+    for i in range(idat_chunks):
+        out += chunk(b"IDAT", comp[i * step:(i + 1) * step])
+    return out + chunk(b"IEND", b"")
+
+
+def write_yaml(path, exp_name, read_path, read_list, K_mat=None, size=None, dist=(0,) * 5,
+               fps=10.0, no_text=0):
+    """A reference-style experiment yaml (tests/test_cli_e2e.py's write_yaml
+    with the camera as arguments)."""
+    Km = K if K_mat is None else K_mat
+    Wc, Hc = (W, H) if size is None else size
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\n")
+        f.write(f"Exp name: {exp_name}\n")
+        f.write(f"Exp noText: {no_text}\n")
+        f.write(f'Exp read path: "{read_path}/"\n')
+        f.write(f'Exp read list: "{read_list}"\n')
+        f.write(f"Camera.fx: {Km[0, 0]}\nCamera.fy: {Km[1, 1]}\n")
+        f.write(f"Camera.cx: {Km[0, 2]}\nCamera.cy: {Km[1, 2]}\n")
+        f.write(f"Camera.k1: {dist[0]}\nCamera.k2: {dist[1]}\n")
+        f.write(f"Camera.p1: {dist[2]}\nCamera.p2: {dist[3]}\n")
+        f.write(f"Camera.k3: {dist[4]}\n")
+        f.write(f"Camera.width: {Wc}\nCamera.height: {Hc}\n")
+        f.write(f"Camera.fps: {fps}\nCamera.RGB: 0\n")
+
+
+def write_dataset(root, n_frames: int, seed=0, kind="lateral", dist=(-0.05, 0.01, 0.0, 0.0, 0.0),
+                  K_mat=None, size=None, n_short=12, fps=10.0):
+    """The text world rendered to disk in the reference's dataset layout
+    (tests/test_cli_e2e.py's fixture): DISTORTED frames as PNG (all five
+    row filters) under images/, the ground-truth detections as
+    text/<stem>_dete.txt / _mean.txt (frame 5 adds a CJK and a "#" probe
+    line), Imlist.txt (every frame) and Imshort.txt (the first n_short), and
+    the yamls: exp0 (Imlist) and exp1-3 (Imshort), scene-only nt_full /
+    nt_short, text-on t_short. Returns (ground-truth Tcw [N, 7], world, the
+    written uint8 frames)."""
+    import os
+
+    Km = K if K_mat is None else K_mat
+    world = TextWorld(seed=seed)
+    poses = camera_path(n_frames, kind)
+    rays = distorted_rays(dist, Km, size)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "text"), exist_ok=True)
+    lines, written = [], []
+    for i, p in enumerate(poses):
+        name = f"images/{i:04d}.png"
+        img = render_distorted(world, p, rays, Km).clip(0, 255).astype(np.uint8)
+        written.append(img)
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(encode_png(img))
+        stem = os.path.join(root, "text", f"{i:04d}")
+        with open(stem + "_dete.txt", "w") as fd, \
+                open(stem + "_mean.txt", "w", encoding="utf-8") as fm:
+            for d in world.detections(p, K_mat=Km, size=size):
+                fd.write(",".join(f"{v:.2f}" for v in d.quad.ravel()) + "\n")
+                fm.write(f"{d.text},{d.score:.2f}\n")
+            if i == 5:
+                # the parser's CJK and empty-OCR ("#") handling, on one frame
+                # only (a detection static in the image seeds junk landmarks)
+                fd.write("1,1,9,1,9,9,1,9\n")
+                fm.write("你好餐厅,0.50\n")
+                fd.write("11,1,19,1,19,9,11,9\n")
+                fm.write("#,0.10\n")
+        lines.append(f"{i / fps:.6f} {name}\n")
+    with open(os.path.join(root, "Imlist.txt"), "w") as f:
+        f.writelines(lines)
+    with open(os.path.join(root, "Imshort.txt"), "w") as f:
+        f.writelines(lines[:n_short])
+    cam = dict(K_mat=Km, size=size, dist=dist, fps=fps)
+    for exp, lst in ((0, "Imlist"), (1, "Imshort"), (2, "Imshort"), (3, "Imshort")):
+        write_yaml(os.path.join(root, f"exp{exp}.yaml"), exp, root, lst, **cam)
+    write_yaml(os.path.join(root, "nt_full.yaml"), 0, root, "Imlist", no_text=1, **cam)
+    write_yaml(os.path.join(root, "nt_short.yaml"), 0, root, "Imshort", no_text=1, **cam)
+    write_yaml(os.path.join(root, "t_short.yaml"), 0, root, "Imshort", **cam)
+    return poses, world, written

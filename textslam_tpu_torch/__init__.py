@@ -10,12 +10,14 @@ lifecycle, the windowed joint point+text bundle adjustment whose
 photometric rows sample through a hand-written CUDA region sampler, and
 semantic loop closing (Levenshtein detection on text strings, Sim3 RANSAC
 and refinement, landmark fusion, the Sim3 pose graph, the global and
-landmark-only bundle adjustments). Checkpointing, the CLI and multi-device
-paths are not ported yet.
+landmark-only bundle adjustments), checkpoint/resume in the JAX package's
+file format, the dataset reader and the command-line entry point
+(`python -m textslam_tpu_torch.cli`). The multi-device paths are not ported
+yet.
 
 Plain tensor code is PyTorch; every Pallas kernel of the JAX package becomes
-a hand-written Hopper kernel under `csrc/`. The package never imports jax or
-textslam_tpu.
+a hand-written Hopper kernel under `csrc/`. The package never imports jax,
+textslam_tpu, cv2 or PIL.
 """
 
 import torch as _torch

@@ -126,7 +126,7 @@ def check_device(device, what: str) -> torch.device:
 
 def build_frame(
     cfg: TextSLAMConfig,
-    img: np.ndarray,
+    img,
     frame_id: int,
     timestamp: float,
     detections: Optional[List[TextDetection]] = None,
@@ -136,11 +136,15 @@ def build_frame(
     device,
 ) -> Frame:
     """Construct a Frame on `device` from an undistorted grayscale image
-    (float32 [H, W])."""
+    (float32 [H, W]: a numpy array, or a tensor, which is used in place when
+    it already lies on `device`)."""
     from ..utils.profiling import phase
 
     dev = check_device(device, "build_frame")
-    imt = torch.as_tensor(np.asarray(img, np.float32), device=dev)
+    if isinstance(img, torch.Tensor):
+        imt = img.to(device=dev, dtype=torch.float32)
+    else:
+        imt = torch.as_tensor(np.asarray(img, np.float32), device=dev)
     with phase("frame.orb"):
         kp = orb.extract_orb(
             imt,
@@ -174,7 +178,7 @@ def build_frame(
     return Frame(
         frame_id=frame_id,
         timestamp=timestamp,
-        shape=img.shape,
+        shape=tuple(imt.shape),
         kp_packed_dev=orb.pack_keypoints(*pools),
         pyr_shapes=pyr_shapes,
         pyr_dev=pyr_dev,

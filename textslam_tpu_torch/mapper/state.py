@@ -64,7 +64,8 @@ class Keyframe:
 class SlamMap:
     """Pool-backed map. Ids are stable array indices."""
 
-    def __init__(self, cfg: TextSLAMConfig):
+    def __init__(self, cfg: TextSLAMConfig, *, device):
+        """device: where kf_pyr_dev uploads evicted keyframes' pyramids."""
         self.cfg = cfg
         m = cfg.map
         self.keyframes: List[Keyframe] = []
@@ -129,8 +130,8 @@ class SlamMap:
         # LRU of device uploads of evicted keyframes' pyramids (kf_pyr_dev)
         self._pyr_lru: Dict[int, torch.Tensor] = {}
         self._pyr_lru_cap = 4
-        # the device of pyramid uploads (set from the first resident pyramid)
-        self.pyr_device: Optional[torch.device] = None
+        # the device of pyramid uploads
+        self.pyr_device = torch.device(device)
 
         self.saturation_drops: Dict[str, int] = {"keyframes": 0, "points": 0, "texts": 0}
 
@@ -165,8 +166,6 @@ class SlamMap:
         self.keyframes.append(kf)
         self.kf_pose[kid] = pose
         self.kf_valid[kid] = True
-        if kf.pyr_dev is not None:
-            self.pyr_device = kf.pyr_dev.device
         # bound device pyramid residency to the BA window (+8 for the theta
         # solvers); older KFs keep only the host mirror
         keep = self.cfg.solver.ba_window + 8
@@ -457,7 +456,7 @@ def slam_map_from_numpy(fields: Mapping, cfg: TextSLAMConfig, *, device) -> Slam
     from ..frontend.frame import TextDetection, check_device
 
     dev = check_device(device, "slam_map_from_numpy")
-    m = SlamMap(cfg)
+    m = SlamMap(cfg, device=dev)
     for name in _MAP_ARRAYS:
         dst = getattr(m, name)
         src = np.asarray(fields[name])
@@ -489,8 +488,5 @@ def slam_map_from_numpy(fields: Mapping, cfg: TextSLAMConfig, *, device) -> Slam
         if d.get("pyr_dev") is not None:
             rec["pyr_dev"] = torch.tensor(np.asarray(d["pyr_dev"]), dtype=torch.float32,
                                           device=dev)
-            m.pyr_device = dev
         m.keyframes.append(Keyframe(**rec))
-    if m.pyr_device is None:
-        m.pyr_device = dev
     return m

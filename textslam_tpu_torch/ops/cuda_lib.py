@@ -1,11 +1,14 @@
-"""Build, load and launch the port's hand-written CUDA kernels.
+"""Build, load and launch the port's hand-written CUDA kernels and host
+routines.
 
 Each `csrc/<name>.cu` compiles with nvcc into a shared library with a plain
 C interface, loaded through ctypes (no PyTorch headers, so a build takes
-seconds). The library lands in `textslam_tpu_torch/_build/`, keyed by a hash
-of the source and the nvcc flags, with nvcc's report (ptxas registers and
-spills) beside it as `<library>.log`. It is built at first use — never at
-import, so the package imports on machines without nvcc or a GPU.
+seconds); each `csrc/<name>.cpp` (host code) the same way with the host C++
+compiler. The library lands in `textslam_tpu_torch/_build/`, keyed by a hash
+of the source and the compiler flags, with the compiler's report (for nvcc,
+ptxas registers and spills) beside it as `<library>.log`. It is built at
+first use — never at import, so the package imports on machines without
+nvcc or a GPU.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every C entry point of csrc/, bound once at load: (source, function) ->
@@ -37,6 +41,8 @@ SIGNATURES: Dict[Tuple[str, str], tuple] = {
     # imgs, group_k, uv, out, mask, then the scalar arguments packed in one
     # buffer (patch_sample.LaunchArgs as bytes)
     ("patch_sample", "patch_sample_launch"): (_P,) * 5 + (ctypes.c_char_p, _P),
+    # host: raw rows (filter byte + bytes), out, rows, stride, bytes per pixel
+    ("png_unfilter", "png_unfilter"): (_P, _P, _I, _I, _I),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -59,16 +65,36 @@ def find_nvcc() -> str:
                        "the CUDA kernels of textslam_tpu_torch cannot be built")
 
 
+def find_cxx() -> str:
+    """Path of the host C++ compiler: $CXX, then c++, then g++ on PATH."""
+    for c in (os.environ.get("CXX"), "c++", "g++"):
+        path = c and shutil.which(c)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler found (set CXX or put g++ on PATH); the host "
+                       "routines of textslam_tpu_torch cannot be built")
+
+
+def _source(name: str) -> Tuple[str, list]:
+    """(csrc path, flags) of a kernel (.cu) or host routine (.cpp)."""
+    cu = os.path.join(CSRC, f"{name}.cu")
+    if os.path.exists(cu):
+        return cu, NVCC_FLAGS
+    return os.path.join(CSRC, f"{name}.cpp"), CXX_FLAGS
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+    path, flags = _source(name)
+    with open(path, "rb") as f:
         src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{key}.so")
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless the keyed library exists; returns its
-    path. Raises with nvcc's output when the build fails."""
+    """Compile csrc/<name>.cu (nvcc) or csrc/<name>.cpp (host C++) unless the
+    keyed library exists; returns its path. Raises with the compiler's
+    output when the build fails."""
     out = library_path(name)
     if os.path.exists(out):
         return out
@@ -76,10 +102,12 @@ def build(name: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        path, flags = _source(name)
+        cc = find_nvcc() if flags is NVCC_FLAGS else find_cxx()
+        res = subprocess.run([cc, *flags, "-o", tmp, path], capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {name}.cu:\n{res.stdout}{res.stderr}")
+            raise RuntimeError(f"{os.path.basename(cc)} failed building "
+                               f"{os.path.basename(path)}:\n{res.stdout}{res.stderr}")
         with open(out + ".log", "w") as f:
             f.write(res.stdout + res.stderr)
         os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
@@ -90,7 +118,7 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu once per process, with
+    """Build (if needed) and load csrc/<name>.cu / .cpp once per process, with
     every entry point's signature from SIGNATURES bound."""
     lib = _LIBS.get(name)
     if lib is not None:

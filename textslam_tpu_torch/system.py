@@ -27,7 +27,7 @@ class TextSLAM:
             raise NotImplementedError("multi-device BA / covisibility is not ported yet")
         self.device = check_device(device, "TextSLAM")
         self.cfg = cfg
-        self.map = SlamMap(cfg)
+        self.map = SlamMap(cfg, device=self.device)
         self.tracker = Tracker(cfg, self.map, device=self.device)
         self.output_dir = output_dir
         self.frame_count = 0
@@ -46,10 +46,11 @@ class TextSLAM:
         if self.output_dir:
             self.record_keyframes(os.path.join(self.output_dir, "keyframe_latest.txt"))
 
-    def track_monocular(self, image: np.ndarray, timestamp: float,
+    def track_monocular(self, image, timestamp: float,
                         detections: Optional[List[TextDetection]] = None) -> Optional[np.ndarray]:
-        """Track one undistorted grayscale frame with its text detections;
-        returns Tcw [7] or None."""
+        """Track one undistorted grayscale frame (float32 [H, W], numpy or a
+        tensor on the system's device) with its text detections; returns
+        Tcw [7] or None."""
         from .utils.profiling import phase
 
         with phase("frame.build"):
@@ -72,10 +73,38 @@ class TextSLAM:
         return frame.pose if ok else None
 
     def save_checkpoint(self, path: str, extra: Optional[dict] = None):
-        raise NotImplementedError("checkpointing is not ported yet")
+        """Serialize the full resumable state (map, tracker motion state,
+        text-frontend reference buffers, loop bookkeeping, the RANSAC
+        generators) to the JAX package's npz format (mapper/checkpoint.py)."""
+        from .mapper import checkpoint
+
+        ex = {"frame_count": int(self.frame_count),
+              "last_loop_kid": int(self.loop_closer.last_loop_kid),
+              "closed_loops": [list(p) for p in self.loop_closer.closed_loops]}
+        ex.update(extra or {})
+        checkpoint.save(path, self.map, tracker=self.tracker,
+                        text_frontend=self.tracker.text_frontend, extra=ex,
+                        loop_closer=self.loop_closer)
 
     def load_checkpoint(self, path: str) -> dict:
-        raise NotImplementedError("checkpointing is not ported yet")
+        """Restore from save_checkpoint (or from the JAX package's); returns
+        the stored extra dict. KLT new-text tracks restart at the next
+        keyframe (the accumulator holds device pyramids and is not
+        serialized)."""
+        from .mapper import checkpoint
+
+        self.map, ex = checkpoint.load(path, self.cfg, tracker=self.tracker,
+                                       text_frontend=self.tracker.text_frontend,
+                                       loop_closer=self.loop_closer, device=self.device)
+        self.tracker.map = self.map
+        self.loop_closer.map = self.map
+        if self.tracker.text_frontend is not None:
+            self.tracker.text_frontend.map = self.map
+        self.frame_count = int(ex.get("frame_count", 0))
+        self.loop_closer.last_loop_kid = int(
+            ex.get("last_loop_kid", self.loop_closer.last_loop_kid))
+        self.loop_closer.closed_loops = [tuple(p) for p in ex.get("closed_loops", [])]
+        return ex
 
     def record_keyframes(self, path: str):
         """Write the keyframe trajectory in TUM format."""
