@@ -83,8 +83,36 @@ Phases, each of which must pass (any failure exits non-zero):
    split with text on (ATE < 0.05), experiments 1-3 over the short list
    (at least 2 keyframes each); prints those medians and the checkpoint's
    save and load times and size;
-9. print per-frame and keyframe-insertion times, one JSON line describing
-   the kernels, and last the JSON result line.
+9. scale-out (textslam_tpu_torch/parallel/), on a mesh of two shards of
+   cuda:0 (the machine has one card; NCCL between two cards is not run):
+   (a) bench.py's problem (20 KFs, 8,192 points, 512 observations per KF,
+   32 texts x 64 features, made with numpy from a seed): one sharded
+   assembly, scene and text, held to one device's at
+   tests/test_parallel.py's tolerances, solve_ba_sharded held to solve_ba
+   by final cost (1e-3 relative) and poses (1e-4), the landmark-sharded
+   step held to the observation-sharded one, and each solve's synchronized
+   wall time beside solve_ba's and the region-sampler solve's;
+   (b) phase 6's text run with the tracker's and the map's mesh set: every
+   windowed BA runs the sharded LM level by level; phase 6's bars (tracking,
+   KF ATE, the text planes), keyframe camera centres within 5e-3 of phase
+   6's after Sim3 alignment (the windowed BA's scale is a gauge:
+   chip_mesh_scale.py) and quaternions within 5e-3, the Sim3 scale printed
+   and within a factor of 1.5 of phase 6's, the sharded solver called with
+   text rows, both kernels launched and every call held to its plain
+   version as in phase 7, per-frame and KF-insertion medians printed beside
+   phase 6's; then the same run on a mesh of four shards of cuda:0, held to
+   the same bars (its kernel calls not held again);
+   (c) the sharded covisibility product at K = 5, 64, 200 and 512
+   keyframes x 32,768 points, plain and weighted, bit-equal to the exact
+   product and timed against the host product (the crossover K printed);
+   (d) two spawned processes, each a 1-shard mesh on cuda:0, in a gloo
+   group (CUDA tensors): one assembly held to the same two shards in one
+   process (1e-5 relative), one solve_ba_sharded held to solve_ba by final
+   cost; then NCCL with a world size of 1, equal to the 1-shard mesh
+   without a group;
+10. print per-frame and keyframe-insertion times, one JSON line of the
+   scale-out numbers, one JSON line describing the kernels, and last the
+   JSON result line.
 
     python3 chip_smoke.py --seed-study 0-21
 
@@ -614,8 +642,9 @@ def _watch(devices):
 
 
 def drive(slam, frames, dets, counters):
-    """Feed the frames; per-frame host times (synchronized), split into
-    init, tracked and keyframe-insertion frames, with kernel launches per
+    """Feed the frames; per-frame host times (synchronized, less the time of
+    kernel checks made inside; see _kernel_checks), split into init,
+    tracked and keyframe-insertion frames, with kernel launches per
     frame."""
     import torch
 
@@ -628,10 +657,10 @@ def drive(slam, frames, dets, counters):
         tracking_before = slam.tracker.state == 1
         before = {k: fn.launches for k, fn in counters.items()}
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), CHECK_MS[0]
         pose = slam.track_monocular(img, float(i), detections=None if dets is None else dets[i])
         torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
+        dt = (time.perf_counter() - t0) * 1e3 - (CHECK_MS[0] - c0)
         n_ok += pose is not None
         if not tracking_before:
             init_ms.append(dt)
@@ -672,7 +701,7 @@ def _summary(name, frames, init_ms, frame_ms, kf_ms, n_ok, slam, gt, launches, t
         "frame_ms_median": float(np.median(frame_ms)),
         "frame_ms_p90": float(np.percentile(frame_ms, 90)),
         "kf_insert_ms_median": float(np.median(kf_ms)),
-        "init_ms": init_ms, "frame_ms": frame_ms, "kf_ms": kf_ms,
+        "init_ms": init_ms, "frame_ms": frame_ms, "kf_ms": kf_ms, "kf_poses": kposes,
     }
     print(f"{name} init ms: {[round(x, 2) for x in init_ms]}")
     print(f"{name} frame ms: {[round(x, 2) for x in frame_ms]}")
@@ -1487,6 +1516,428 @@ def run_cli(card: str):
     return res
 
 
+# phase 9: scale-out. The machine has one card, so the mesh is two shards on
+# cuda:0 (the sharded path on one card, as the JAX tests run it on virtual
+# CPU devices); NCCL between two cards is not exercised
+MESH_SHARDS = 2
+# bench.py's problem: a 20-KF window, 8,192 points, 512 observations per KF,
+# 32 texts x 64 features (10,240 scene and 20,480 text rows)
+BENCH_PROBLEM = dict(n_kf=20, n_pts=8192, obs_per_kf=512, n_text=32, text_feat=64,
+                     with_text=True)
+BA_ITERS = 10
+LM_COST_RTOL = 1e-3  # whole solves: final cost (tests/test_torch_parallel.py)
+LM_POSE_ATOL = 1e-4
+MESH_POSE_DIFF = 5e-3  # mesh text run vs phase 6's (up to scale): tests/test_e2e_mesh.py's bar
+# the mesh text runs' Sim3 scale against phase 6's: a gauge the LM moves
+# along (chip_mesh_scale.py), so this factor either way catches a collapsed
+# or exploded map, not drift
+MESH_SCALE_BAND = 1.5
+COVIS_KS = (5, 64, 200, 512)  # keyframes; 512 x 32768 is the default pools' cap
+COVIS_POINTS = 32768
+COVIS_DENSITY = 0.03  # share of the pool a keyframe observes (~1,000 points)
+MP_TIMEOUT_S = 300  # each spawned process group, set-up included
+
+
+def _sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def wall_ms(fn, reps: int = 3):
+    """(median synchronized wall milliseconds of fn over reps calls after
+    one warm-up call, the last result)."""
+    import statistics
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _violations(got, want, rtol: float, atol: float):
+    """(count, worst |got - want|) of entries outside atol + rtol |want|."""
+    import torch
+
+    got, want = got.double(), want.double().to(got.device)
+    d = (got - want).abs()
+    bad = d > atol + rtol * want.abs()
+    return int(bad.sum()), float(d.max()) if d.numel() else 0.0
+
+
+def _single_systems(prob):
+    """One device's scene and text systems: ((Hcc, bc, W, Hll, bl, cost),
+    (Hcc, bc, Wt, Ht, bt, cost))."""
+    from textslam_tpu_torch.solver import ba
+
+    K, P, T = prob.poses.shape[0], prob.rho.shape[0], prob.theta.shape[0]
+    s, t = prob.scene, prob.text
+    ts = ba.scene_terms(prob, 2.447)
+    scene = (*ba.assemble_camera_system(ts, s.tgt, s.host, K),
+             *ba.assemble_landmark_system(ts, s.tgt, s.host, s.point, P, K, 1), ts["cost"].sum())
+    tt = ba.text_terms(prob, 3.0)
+    text = (*ba.assemble_camera_system(tt, t.tgt, t.host, K),
+            *ba.assemble_landmark_system(tt, t.tgt, t.host, t.text, T, K, 3), tt["cost"].sum())
+    return scene, text
+
+
+def _hold_assembly(label, got, want, tols):
+    """Hold a sharded assembly to one device's, block by block, at
+    tests/test_parallel.py's tolerances; returns {block: worst abs diff}."""
+    out = {}
+    for name, g, w, (rtol, atol) in zip(("Hcc", "bc", "W", "Hll", "bl"), got, want, tols):
+        n_bad, worst = _violations(g, w, rtol, atol)
+        check(n_bad == 0, f"{label}: sharded {name} differs from one device's at {n_bad} "
+                          f"entries (worst {worst}; rtol {rtol}, atol {atol})")
+        out[name] = worst
+    c, c0 = float(got[5]), float(want[5])
+    check(abs(c - c0) <= 1e-4 * max(1.0, abs(c0)), f"{label}: sharded cost {c} vs {c0}")
+    return out
+
+
+def run_sharded_ba(card: str, device="cuda"):
+    """Phase 9(a): bench.py's problem on a 2-shard mesh of one card: one
+    sharded assembly against one device's, solve_ba_sharded against
+    solve_ba, the landmark-sharded step against the observation-sharded
+    one, and the synchronized wall time of each solve."""
+    import numpy as np
+    import torch
+    import torch_synth
+    from textslam_tpu_torch.parallel import ba_sharded
+    from textslam_tpu_torch.parallel.mesh import Mesh
+    from textslam_tpu_torch.solver import ba
+
+    dev = torch.device(device)
+    mesh = Mesh([dev] * MESH_SHARDS)
+    prob = ba.ba_problem_from_numpy(torch_synth.ba_problem_arrays(**BENCH_PROBLEM), device=dev)
+    res = {"problem": {k: v for k, v in BENCH_PROBLEM.items() if k != "with_text"},
+           "scene_rows": int(prob.scene.tgt.shape[0]), "text_rows": int(prob.text.tgt.shape[0]),
+           "shards": [str(d) for d in mesh.devices]}
+    # one assembly, scene and text, at tests/test_parallel.py:32-35's
+    # tolerances (Hcc, bc, W: rtol 5e-4, atol 2e-3; Hll: atol 1e-4)
+    one_scene, one_text = _single_systems(prob)
+    tols = [(5e-4, 2e-3)] * 3 + [(5e-4, 1e-4), (5e-4, 2e-3)]
+    res["assembly_worst_abs_diff"] = {
+        "scene": _hold_assembly("9a scene", ba_sharded.sharded_scene_normal_eqs(prob, mesh, 2.447),
+                                one_scene, tols),
+        "text": _hold_assembly("9a text", ba_sharded.sharded_text_normal_eqs(prob, mesh, 3.0),
+                               one_text, tols)}
+    # the LM: sharded against one device with the same sampling (per-feature
+    # patches), and the fused schedule's solve (region sampler) for time
+    F = BENCH_PROBLEM["text_feat"]
+    ms = {}
+    ms["solve_ba"], st1 = wall_ms(lambda: ba.solve_ba(prob, n_iters=BA_ITERS))
+    ms["solve_ba_pair_feat"], stf = wall_ms(
+        lambda: ba.solve_ba(prob, n_iters=BA_ITERS, text_pair_feat=F))
+    ms["solve_ba_sharded"], st2 = wall_ms(
+        lambda: ba_sharded.solve_ba_sharded(prob, mesh, n_iters=BA_ITERS))
+    c1, c2, cf = float(st1.cost), float(st2.cost), float(stf.cost)
+    pose_diff = float((st2.poses - st1.poses).abs().max())
+    check(abs(c2 - c1) <= LM_COST_RTOL * max(1.0, c1),
+          f"9a: solve_ba_sharded cost {c2} vs solve_ba {c1}")
+    check(pose_diff <= LM_POSE_ATOL, f"9a: solve_ba_sharded poses {pose_diff} from solve_ba's")
+    # the landmark-sharded step against the observation-sharded step (scene)
+    sp = prob._replace(text=None, theta=None, theta_free=None, images=None)
+    ms["sharded_ba_step"], (p0, r0, k0) = wall_ms(lambda: ba_sharded.sharded_ba_step(sp, mesh))
+    ms["sharded_ba_step_landmark"], (p1, r1, k1) = wall_ms(
+        lambda: ba_sharded.sharded_ba_step_landmark(sp, mesh))
+    lm = {"cost": abs(float(k1) - float(k0)) / max(1.0, abs(float(k0))),
+          "poses": _violations(p1, p0, 1e-4, 1e-5), "rho": _violations(r1, r0, 1e-4, 1e-5)}
+    check(lm["cost"] <= 1e-5 and lm["poses"][0] == 0 and lm["rho"][0] == 0,
+          f"9a: landmark-sharded step vs observation-sharded step {lm}")
+    res.update(cost_solve_ba=c1, cost_solve_ba_sharded=c2, cost_solve_ba_pair_feat=cf,
+               pose_diff=pose_diff, landmark_step_vs_obs_step=lm, ms=ms)
+    print(f"9a sharded BA on {mesh.size} shards ({', '.join(res['shards'])}), bench.py's problem "
+          f"({res['scene_rows']} scene + {res['text_rows']} text rows), {BA_ITERS} LM iterations: "
+          f"assembly worst abs diff vs one device {res['assembly_worst_abs_diff']}; final cost "
+          f"sharded {c2:.6f}, solve_ba {c1:.6f} (region-sampler solve {cf:.6f}), poses max diff "
+          f"{pose_diff:.3e}; landmark-sharded step vs observation-sharded {lm}")
+    print(f"9a wall ms (synchronized, median of 3): solve_ba {ms['solve_ba']:.3f}, "
+          f"solve_ba(text_pair_feat={F}) (the fused schedule's solve, region sampler kernel) "
+          f"{ms['solve_ba_pair_feat']:.3f}, solve_ba_sharded {ms['solve_ba_sharded']:.3f}; "
+          f"sharded_ba_step {ms['sharded_ba_step']:.3f}, sharded_ba_step_landmark "
+          f"{ms['sharded_ba_step_landmark']:.3f}  [{card}]")
+    return res
+
+
+def _kf_pose_diff(k_ref, k, label: str):
+    """Keyframe poses k [N, 7] against k_ref, up to the windowed BA's free
+    scale: with one fixed pose its cost is flat along scale (a gauge), the
+    LM's steps move along it, and where a run stops on it follows every
+    input the solves see (chip_mesh_scale.py), so the camera centres are
+    Sim3-aligned to k_ref's before MESH_POSE_DIFF is applied; the rotations,
+    which scale does not touch, are compared as they are. Returns {raw,
+    centres_sim3, rotations, scale}."""
+    import numpy as np
+    import torch_synth
+    from textslam_tpu_torch.geometry import se3_np
+
+    check(k_ref.shape == k.shape, f"{label}: {len(k)} keyframes, phase 6 made {len(k_ref)}")
+    c0, c1 = se3_np.inverse(k_ref)[:, 4:7], se3_np.inverse(k)[:, 4:7]
+    scale, R, t = torch_synth._horn_alignment(c0.astype(np.float64), c1.astype(np.float64))
+    diff = {"raw": float(np.abs(k - k_ref).max()),
+            "centres_sim3": float(np.linalg.norm(scale * c1 @ R.T + t - c0, axis=-1).max()),
+            "rotations": float(np.abs(k[:, :4] - k_ref[:, :4]).max()), "scale": float(scale)}
+    check(diff["centres_sim3"] <= MESH_POSE_DIFF and diff["rotations"] <= MESH_POSE_DIFF,
+          f"{label}: keyframe poses vs phase 6's {diff} (bar {MESH_POSE_DIFF})")
+    check(1.0 / MESH_SCALE_BAND <= scale <= MESH_SCALE_BAND,
+          f"{label}: Sim3 scale {scale} against phase 6's outside the factor {MESH_SCALE_BAND}")
+    return diff
+
+
+def _mesh_text_run(card: str, n_shards: int, hold_kernels: bool):
+    """Phase 6's text run with the tracker's and the map's mesh set to
+    n_shards shards of cuda:0, through drive() and _summary() (phase 6's
+    tracking and ATE bars), with the text-plane bars; with hold_kernels every
+    Hamming and sampler call is held to its plain version. Returns (summary,
+    sharded solve counts, text-plane result)."""
+    import torch
+    from textslam_tpu_torch.ops import matching, patch_sample
+    from textslam_tpu_torch.parallel import ba_sharded
+    from textslam_tpu_torch.parallel.mesh import Mesh
+
+    label = f"mesh text {n_shards} shards"
+    slam, frames, dets, gt, world = text_setup()
+    mesh = Mesh([torch.device("cuda", 0)] * n_shards)
+    slam.tracker.mesh = slam.map._covis_mesh = mesh
+    devices = set()
+    watch = _watch(devices)
+    solves = {"calls": 0, "with_text": 0}
+    orig = ba_sharded.solve_ba_sharded
+
+    def counted(prob, m, **kw):
+        solves["calls"] += 1
+        solves["with_text"] += prob.text is not None
+        return orig(prob, m, **kw)
+
+    ba_sharded.solve_ba_sharded = watch(counted)
+    checks, restore_checks = _kernel_checks(matching, patch_sample, label=label)
+    checks["on"] = hold_kernels
+    try:
+        out = drive(slam, frames, dets, {"hamming_matrix": matching.hamming_matrix,
+                                         "grouped_bilinear_stack":
+                                             patch_sample.grouped_bilinear_stack})
+    finally:
+        checks["on"] = False
+        restore_checks()
+        ba_sharded.solve_ba_sharded = orig
+    res = _summary(label, frames, *out[:4], slam, gt, *out[4:], devices, card)
+    for k, n in res["launches"].items():
+        check(n > 0, f"{label}: the {k} kernel was never launched")
+    check(solves["calls"] > 0 and solves["with_text"] > 0,
+          f"{label}: sharded solves {solves} (none, or none with text rows)")
+    n_good, cosines, failed = text_planes(slam, gt, world)
+    print(f"{label} objects: {slam.map.n_texts}, GOOD {n_good}; GOOD normals vs ground truth "
+          f"(string, KF observations, cos): {_planes_line(cosines)}")
+    check(not failed, f"{label}: {failed}")
+    res.update(solves=solves, n_good=n_good, theta_cos=cosines)
+    if hold_kernels:
+        stats = checks["stats"]
+        res.update(calls_held={k: v["calls"] for k, v in stats.items()},
+                   max_abs_err={k: v["max_abs_err"] for k, v in stats.items()})
+    return res
+
+
+def run_mesh_text(card: str, text_res: dict):
+    """Phase 9(b): phase 6's text run with the tracker's and the map's mesh
+    set to 2 shards of cuda:0 (every windowed BA runs the sharded LM level
+    by level, every kernel call held to its plain version), then to 4
+    shards; each meets phase 6's bars, and its keyframe poses lie near
+    phase 6's up to the windowed BA's free scale (_kf_pose_diff), whose
+    factor is printed and held within MESH_SCALE_BAND."""
+    k6 = text_res["kf_poses"]
+    res = _mesh_text_run(card, MESH_SHARDS, hold_kernels=True)
+    diff = _kf_pose_diff(k6, res["kf_poses"], "mesh text")
+    res4 = _mesh_text_run(card, 2 * MESH_SHARDS, hold_kernels=False)
+    diff4 = _kf_pose_diff(k6, res4["kf_poses"], "4-shard mesh text")
+    res.update(kf_pose_diff_vs_phase6=diff, four_shards={
+        "kf_pose_diff_vs_phase6": diff4, "kf_ate": res4["kf_ate"], "tracked": res4["tracked"],
+        "solves": res4["solves"], "frame_ms_median": res4["frame_ms_median"],
+        "kf_insert_ms_median": res4["kf_insert_ms_median"]})
+    for n, (r, d) in ((MESH_SHARDS, (res, diff)), (2 * MESH_SHARDS, (res4, diff4))):
+        print(f"mesh text {n} shards: {r['solves']['calls']} sharded solves "
+              f"({r['solves']['with_text']} with text rows); keyframe poses vs phase 6's: camera "
+              f"centres within {d['centres_sim3']:.3e} after Sim3 alignment (scale "
+              f"{d['scale']:.5f}), quaternions within {d['rotations']:.3e}, raw {d['raw']:.3e}")
+    print(f"mesh text: kernel calls held to the plain version {res['calls_held']} (max abs err "
+          f"{res['max_abs_err']})")
+    print(f"mesh text vs phase 6 medians: per frame {res['frame_ms_median']:.3f} (4 shards "
+          f"{res4['frame_ms_median']:.3f}) vs {text_res['frame_ms_median']:.3f} ms, KF insertion "
+          f"{res['kf_insert_ms_median']:.3f} (4 shards {res4['kf_insert_ms_median']:.3f}) vs "
+          f"{text_res['kf_insert_ms_median']:.3f} ms  [{card}]")
+    return res
+
+
+def run_covis(card: str, device="cuda"):
+    """Phase 9(c): the sharded covisibility product on a 2-shard mesh,
+    plain and weighted, bit-equal to the exact product (float64 BLAS:
+    every count is an integer far below 2^53), timed at each K against the
+    host product SlamMap runs below covis_min_kfs (numpy int32; once, it
+    takes seconds at K = 512); prints the crossover K."""
+    import numpy as np
+    import torch
+    from textslam_tpu_torch.parallel import covis_sharded
+    from textslam_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([torch.device(device)] * MESH_SHARDS)
+    rng = np.random.default_rng(9)
+    rows, crossover = [], None
+    for K in COVIS_KS:
+        inc = rng.random((K, COVIS_POINTS)) < COVIS_DENSITY
+        w = rng.integers(0, 65, COVIS_POINTS)  # level-0 text feature counts (F = 64)
+        inc_i = inc.astype(np.int32)
+        _sync()
+        t0 = time.perf_counter()
+        M_host = inc_i @ inc_i.T  # SlamMap._covis_product's host path
+        np.fill_diagonal(M_host, 0)
+        t_host = (time.perf_counter() - t0) * 1e3
+        row = {"K": K, "points": COVIS_POINTS, "host_ms": t_host}
+        f = inc.astype(np.float64)
+        for weighted in (False, True):
+            wk = w if weighted else None
+            t_dev, M_dev = wall_ms(lambda: covis_sharded.covis_product(inc, mesh, w=wk))
+            want = (f * wk[None, :] if weighted else f) @ f.T
+            np.fill_diagonal(want, 0)
+            want = want.astype(np.int32)
+            check(M_dev.dtype == np.int32 and np.array_equal(M_dev, want),
+                  f"9c: covis_product K={K} weighted={weighted} differs from the exact product")
+            if not weighted:
+                check(np.array_equal(M_host, want), f"9c: host product K={K} is not exact")
+            row["weighted_device_ms" if weighted else "device_ms"] = t_dev
+        rows.append(row)
+        if crossover is None and row["device_ms"] < t_host:
+            crossover = K
+    for r in rows:
+        print(f"9c covis_product K={r['K']} x {r['points']}: {MESH_SHARDS}-shard device "
+              f"{r['device_ms']:.3f} ms plain, {r['weighted_device_ms']:.3f} ms weighted (upload, "
+              f"product, readback; bit-equal) vs host numpy int32 {r['host_ms']:.3f} ms")
+    print(f"9c crossover: the device product wins from K = {crossover} of {COVIS_KS} (config "
+          f"default covis_min_kfs = 384, the JAX package's)  [{card}]")
+    return {"rows": rows, "crossover_k": crossover}
+
+
+def _mp_worker(rank: int, world: int, backend: str, port: int, out_dir: str, device: str):
+    """One process of phase 9(d): a 1-shard mesh on `device` in a `backend`
+    process group; one sharded assembly (scene + text) and one
+    solve_ba_sharded of bench.py's problem; rank 0 writes the results."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch_synth
+    from textslam_tpu_torch.parallel import ba_sharded
+    from textslam_tpu_torch.parallel.mesh import Mesh
+    from textslam_tpu_torch.solver import ba
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+    try:
+        mesh = Mesh([dev], group=dist.group.WORLD)
+        prob = ba.ba_problem_from_numpy(torch_synth.ba_problem_arrays(**BENCH_PROBLEM), device=dev)
+        Hcc, bc, _, Hll, bl, c1 = ba_sharded.sharded_scene_normal_eqs(prob, mesh, 2.447)
+        H2, b2, _, Ht, bt, c2 = ba_sharded.sharded_text_normal_eqs(prob, mesh, 3.0)
+        st = ba_sharded.solve_ba_sharded(prob, mesh, n_iters=BA_ITERS)
+        if rank == 0:
+            out = dict(Hcc=Hcc + H2, bc=bc + b2, Hll=Hll, bl=bl, Ht=Ht, bt=bt, cost0=c1 + c2,
+                       poses=st.poses, rho=st.rho, theta=st.theta, cost=st.cost)
+            np.savez(os.path.join(out_dir, f"{backend}_{world}.npz"),
+                     **{k: v.cpu().numpy() for k, v in out.items()})
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(world: int, backend: str, out_dir: str, device: str = "cuda:0"):
+    """Run _mp_worker in `world` spawned processes (CUDA does not survive
+    fork); every process is stopped before this returns."""
+    import socket
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(_mp_worker, args=(world, backend, port, out_dir, device),
+                             nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + MP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < deadline,
+                  f"9d: {world} {backend} processes outlived {MP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def run_two_process(card: str):
+    """Phase 9(d): two spawned processes, each a 1-shard mesh on cuda:0 in a
+    gloo group (CUDA tensors through gloo: NCCL refuses two ranks on one
+    card), held against the same 2-shard mesh in one process (one assembly,
+    tightly) and against solve_ba (the LM, by final cost); then NCCL with a
+    world size of 1, which must equal the 1-shard mesh without a group."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch_synth
+    from textslam_tpu_torch.parallel import ba_sharded
+    from textslam_tpu_torch.parallel.mesh import Mesh
+    from textslam_tpu_torch.solver import ba
+
+    dev = torch.device("cuda", 0)
+    prob = ba.ba_problem_from_numpy(torch_synth.ba_problem_arrays(**BENCH_PROBLEM), device=dev)
+    mesh2 = Mesh([dev] * 2)
+    Hcc, bc, _, Hll, bl, c1 = ba_sharded.sharded_scene_normal_eqs(prob, mesh2, 2.447)
+    H2, b2, _, Ht, bt, c2 = ba_sharded.sharded_text_normal_eqs(prob, mesh2, 3.0)
+    same = dict(Hcc=Hcc + H2, bc=bc + b2, Hll=Hll, bl=bl, Ht=Ht, bt=bt, cost0=c1 + c2)
+    st1 = ba.solve_ba(prob, n_iters=BA_ITERS)
+    one = ba_sharded.solve_ba_sharded(prob, Mesh([dev]), n_iters=BA_ITERS)
+    res = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        _spawn(2, "gloo", out_dir)
+        res["gloo_s"] = time.perf_counter() - t0
+        z = np.load(os.path.join(out_dir, "gloo_2.npz"))
+        worst = {}
+        for k, v in same.items():
+            ref = v.cpu().numpy()
+            scale = max(1.0, float(np.abs(ref).max()))
+            d = np.abs(z[k] - ref)
+            check(bool((d <= 1e-5 * np.abs(ref) + 1e-6 * scale).all()),
+                  f"9d gloo: {k} differs from the in-process 2-shard assembly by {d.max()}")
+            worst[k] = float(d.max())
+        c, c_ref = float(z["cost"]), float(st1.cost)
+        check(abs(c - c_ref) <= LM_COST_RTOL * max(1.0, c_ref),
+              f"9d gloo: solve_ba_sharded cost {c} vs solve_ba {c_ref}")
+        res.update(gloo_assembly_worst_abs_diff=worst, gloo_cost=c, solve_ba_cost=c_ref)
+        t0 = time.perf_counter()
+        _spawn(1, "nccl", out_dir)
+        res["nccl_s"] = time.perf_counter() - t0
+        z = np.load(os.path.join(out_dir, "nccl_1.npz"))
+        for k in ("poses", "rho", "theta", "cost"):
+            ref = getattr(one, k).cpu().numpy()
+            check(np.allclose(z[k], ref, rtol=1e-6, atol=1e-7),
+                  f"9d nccl: world size 1 {k} differs from the 1-shard mesh without a group by "
+                  f"{np.abs(z[k] - ref).max()}")
+        res["nccl_cost"] = float(z["cost"])
+    print(f"9d two gloo processes x 1 shard of cuda:0: assembly worst abs diff vs the same 2 "
+          f"shards in one process {res['gloo_assembly_worst_abs_diff']}; LM final cost "
+          f"{res['gloo_cost']:.6f} vs solve_ba {res['solve_ba_cost']:.6f} ({res['gloo_s']:.1f} s "
+          f"with spawn); NCCL world size 1: equal to the 1-shard mesh ({res['nccl_s']:.1f} s). "
+          f"NCCL between two cards: not run (one card)  [{card}]")
+    return res
+
+
 def run_text_seeds(seeds, card: str):
     """The text run again under other RANSAC seeds (TextSLAMConfig.seed):
     tracking, keyframe ATE and the text-plane bars of every run; fails
@@ -1574,22 +2025,28 @@ def main() -> int:
     textrun = run_text(card)
     looprun = run_loop(card)
     clirun = run_cli(card)
+    # phase 9: scale-out
+    sharded = run_sharded_ba(card)
+    meshrun = run_mesh_text(card, textrun)
+    covis = run_covis(card)
+    twoproc = run_two_process(card)
 
     ham = hamming_rows[0]  # [4096, 1000]: every tracked frame below 4096 points
     # loop-time calls held against the plain version (phase 7)
     lchk = looprun["loop_kernel_checks"]
     ham_loop = [lchk[k] for k in ("hamming_matrix", "hamming_matrix_min") if k in lchk]
     smp_loop = lchk["grouped_bilinear_stack"]
-    cli_err = clirun["max_abs_err"]
+    cli_err, mesh_err = clirun["max_abs_err"], meshrun["max_abs_err"]
     ham = dict(ham, max_abs_err=max([r["max_abs_err"] for r in hamming_rows]
                                     + [v["max_abs_err"] for v in ham_loop]
-                                    + [cli_err.get(k, 0.0) for k in ("hamming_matrix",
-                                                                     "hamming_matrix_min")]))
+                                    + [e.get(k, 0.0) for e in (cli_err, mesh_err)
+                                       for k in ("hamming_matrix", "hamming_matrix_min")]))
     # level 0 of one frame's pyramid, G = 16: most of the path's launches
     smp = next(r for r in sampler_rows if r["case"] == "frame level view" and r["level"] == 0
                and r["groups"] == 16)
     smp = dict(smp, max_abs_err=max([r["max_abs_err"] for r in sampler_rows]
-                                    + [smp_loop["max_abs_err"], cli_err["grouped_bilinear_stack"]]))
+                                    + [smp_loop["max_abs_err"], cli_err["grouped_bilinear_stack"],
+                                       mesh_err["grouped_bilinear_stack"]]))
     path = [r for r in sampler_rows if r["on_path"]]
     print(f"sampler wrapper / grid_sample on the path: G=16 level 0 "
           f"{smp['ms'] / smp['library_ms']:.2f}, worst "
@@ -1612,7 +2069,10 @@ def main() -> int:
          "loop_calls_held_to_plain": sum(v["calls"] for v in ham_loop),
          "launches_cli_run": clirun["launches"]["hamming_matrix"],
          "cli_calls_held_to_plain": sum(clirun["calls_held"].get(k, 0)
-                                        for k in ("hamming_matrix", "hamming_matrix_min"))},
+                                        for k in ("hamming_matrix", "hamming_matrix_min")),
+         "launches_mesh_run": meshrun["launches"]["hamming_matrix"],
+         "mesh_calls_held_to_plain": sum(meshrun["calls_held"].get(k, 0)
+                                         for k in ("hamming_matrix", "hamming_matrix_min"))},
         {"name": "grouped_bilinear_stack", "route": "cuda",
          "source": "textslam_tpu_torch/csrc/patch_sample.cu",
          "replaces": "textslam_tpu/ops/pallas_kernels.py:193",
@@ -1624,8 +2084,17 @@ def main() -> int:
          "launches_loop_closure": looprun["launches_loop_closure"]["grouped_bilinear_stack"],
          "loop_calls_held_to_plain": smp_loop["calls"],
          "launches_cli_run": clirun["launches"]["grouped_bilinear_stack"],
-         "cli_calls_held_to_plain": clirun["calls_held"]["grouped_bilinear_stack"]},
+         "cli_calls_held_to_plain": clirun["calls_held"]["grouped_bilinear_stack"],
+         "launches_mesh_run": meshrun["launches"]["grouped_bilinear_stack"],
+         "mesh_calls_held_to_plain": meshrun["calls_held"]["grouped_bilinear_stack"]},
     ]
+    print(json.dumps({"scale_out": {
+        "sharded_ba_ms": sharded["ms"], "sharded_ba_costs": [sharded["cost_solve_ba"],
+                                                             sharded["cost_solve_ba_sharded"]],
+        "mesh_text": {k: meshrun[k] for k in ("kf_ate", "frame_ms_median", "kf_insert_ms_median",
+                                               "solves", "kf_pose_diff_vs_phase6",
+                                               "four_shards")},
+        "covis": covis, "two_process": twoproc}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -189,18 +189,22 @@ def test_port_from_scratch(sequence, lockstep, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """Multi-device raises; checkpointing is ported (a fresh system's
-    checkpoint loads back, tests/test_torch_checkpoint.py holds the rest)."""
+    """Every option is ported now: checkpointing (a fresh system's
+    checkpoint loads back, tests/test_torch_checkpoint.py holds the rest)
+    and the multi-device options, which put the BA and the covisibility
+    rebuilds on a CPU mesh of that many shards (tests/test_torch_parallel.py
+    and tests/test_torch_e2e_mesh.py hold the rest)."""
     slam = TextSLAM(_cfg(tcfg), device="cpu")
     path = str(tmp_path / "fresh.npz")
     slam.save_checkpoint(path, extra={"frame_index": -1})
     assert TextSLAM(_cfg(tcfg), device="cpu").load_checkpoint(path)["frame_index"] == -1
+    assert slam.tracker.mesh is None and slam.map._covis_mesh is None
     par = tcfg.ParallelConfig(ba_devices=2)
-    with pytest.raises(NotImplementedError):
-        TextSLAM(dataclasses.replace(_cfg(tcfg), parallel=par), device="cpu")
+    slam = TextSLAM(dataclasses.replace(_cfg(tcfg), parallel=par), device="cpu")
+    assert slam.tracker.mesh.size == 2 and slam.map._covis_mesh is None
     par = tcfg.ParallelConfig(covis_devices=2)
-    with pytest.raises(NotImplementedError):
-        TextSLAM(dataclasses.replace(_cfg(tcfg), parallel=par), device="cpu")
+    slam = TextSLAM(dataclasses.replace(_cfg(tcfg), parallel=par), device="cpu")
+    assert slam.tracker.mesh is None and slam.map._covis_mesh.size == 2
 
 
 def test_cuda_device_never_falls_back_to_cpu():

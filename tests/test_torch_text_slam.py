@@ -281,13 +281,15 @@ def test_port_from_scratch(sequence):
 
 
 def test_unported_paths_raise(tmp_path):
-    """With text on, multi-device raises; checkpointing is ported: a
-    checkpoint carries the text frontend's and the loop closer's RANSAC
-    generator states, and a loaded system continues both streams."""
+    """Every path is ported now. With text on, ba_devices=2 builds the
+    tracker's 2-shard CPU mesh (tests/test_torch_e2e_mesh.py runs it).
+    Checkpointing: a checkpoint carries the text frontend's and the loop
+    closer's RANSAC generator states, and a loaded system continues both
+    streams."""
     cfg = _cfg(tcfg)
-    with pytest.raises(NotImplementedError):
-        TextSLAM(dataclasses.replace(cfg, parallel=tcfg.ParallelConfig(ba_devices=2)),
-                 device="cpu")
+    meshed = TextSLAM(dataclasses.replace(cfg, parallel=tcfg.ParallelConfig(ba_devices=2)),
+                      device="cpu")
+    assert meshed.tracker.mesh.size == 2 and meshed.tracker.text_frontend is not None
     slam = TextSLAM(cfg, device="cpu")
     gens = (slam.tracker.text_frontend._gen, slam.loop_closer._gen)
     for g in gens:

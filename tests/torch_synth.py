@@ -14,7 +14,8 @@ projected from the ground-truth boxes, `plane_theta_in_cam`) and
 numpy; for datasets on disk, `render_distorted` (the image a camera with
 radial-tangential distortion takes of the world, tests/test_cli_e2e.py's
 renderer without cv2) and `encode_png` (a PNG writer with a chosen filter
-per row).
+per row). `ba_problem_arrays` is __graft_entry__._synthetic_problem (the
+bench.py BA problem) in numpy, for ba_problem_from_numpy.
 """
 
 from __future__ import annotations
@@ -257,6 +258,75 @@ def render_text_sequence(n_frames=40, seed=0, kind="lateral", K_mat=None, size=N
     frames = [world.render(p, K_mat=K_mat, size=size) for p in poses]
     dets = [world.detections(p, K_mat=K_mat, size=size) for p in poses]
     return frames, dets, poses, world
+
+
+def ba_problem_arrays(n_kf=8, n_pts=2048, obs_per_kf=512, n_text=16, text_feat=64,
+                      img_hw=(480, 640), with_text=True, seed=0) -> dict:
+    """__graft_entry__._synthetic_problem in numpy, from the same RNG calls:
+    a windowed BA problem on synthetic geometry (the observations are
+    exact projections plus noise; the text rows are grouped in [pair,
+    text_feat] order over random image stacks). Returns the field dict
+    textslam_tpu_torch.solver.ba.ba_problem_from_numpy reads."""
+    rng = np.random.default_rng(seed)
+    fx = fy = 420.0
+    cx, cy = 320.0, 240.0
+    poses = []
+    for k in range(n_kf):
+        q = _qexp(rng.normal(0, 0.02, 3).astype(np.float32))
+        t = np.array([-0.25 * k, 0, 0]) + rng.normal(0, 0.01, 3)
+        poses.append(np.concatenate([q, t]).astype(np.float32))
+    poses = np.stack(poses)
+    uv_host = np.stack([rng.uniform(40, 600, n_pts), rng.uniform(40, 440, n_pts)], -1)
+    ray = np.concatenate([(uv_host - [cx, cy]) / [fx, fy], np.ones((n_pts, 1))],
+                         -1).astype(np.float32)
+    rho = (1.0 / rng.uniform(2, 8, n_pts)).astype(np.float32)
+    O = n_kf * obs_per_kf
+    tgt = np.repeat(np.arange(n_kf, dtype=np.int32), obs_per_kf)
+    point = rng.integers(0, n_pts, O).astype(np.int32)
+    p_host = ray[point] / rho[point][:, None]
+    A = se3_np.compose(poses[tgt], se3_np.inverse(poses[0])[None])
+    p_c = se3_np.apply(A, p_host)
+    uv = np.stack([fx * p_c[:, 0] / p_c[:, 2] + cx, fy * p_c[:, 1] / p_c[:, 2] + cy], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    scene = dict(tgt=tgt, host=np.zeros(O, np.int32), host_frozen_pose=np.tile(poses[0], (O, 1)),
+                 host_in_window=np.ones(O, bool), point=point, ray=ray[point],
+                 uv=uv.astype(np.float32), weight=np.full(O, 1.0 / 1.2, np.float32),
+                 valid=p_c[:, 2] > 0.1)
+    text = images = None
+    if with_text:
+        Hh, Ww = img_hw
+        inten = rng.uniform(0, 255, (n_kf, Hh, Ww)).astype(np.float32)
+        gx = np.gradient(inten, axis=2) * 8.0
+        gy = np.gradient(inten, axis=1) * 8.0
+        images = np.stack([inten, gx, gy], axis=-1).astype(np.float32)
+        n_pairs = n_text * max(n_kf // 2, 1)
+        Ot = n_pairs * text_feat
+        pair_tgt = rng.integers(1, n_kf, n_pairs).astype(np.int32)
+        pair_tid = np.tile(np.arange(n_text, dtype=np.int32), max(n_kf // 2, 1))
+        mx, my = min(120, Ww // 4), min(60, Hh // 4)
+        box_cx = rng.uniform(mx, Ww - mx, n_pairs)
+        box_cy = rng.uniform(my, Hh - my, n_pairs)
+        uvf = np.stack([
+            np.repeat(box_cx, text_feat) + rng.uniform(-0.75 * mx, 0.75 * mx, Ot),
+            np.repeat(box_cy, text_feat) + rng.uniform(-0.75 * my, 0.75 * my, Ot),
+        ], -1)
+        offs = np.array([[0, 0], [2, 0], [-2, 0], [0, 2], [0, -2], [1, -1], [-1, 1], [-1, -1]],
+                        np.float32)
+        pos = uvf[:, None, :] + offs[None]
+        rays_t = np.concatenate([(pos - [cx, cy]) / [fx, fy], np.ones((Ot, 8, 1))],
+                                -1).astype(np.float32)
+        text = dict(tgt=np.repeat(pair_tgt, text_feat), host=np.zeros(Ot, np.int32),
+                    host_frozen_pose=np.tile(poses[0], (Ot, 1)),
+                    host_in_window=np.ones(Ot, bool), text=np.repeat(pair_tid, text_feat),
+                    rays=rays_t, ref_inten=rng.normal(0, 1, (Ot, 8)).astype(np.float32),
+                    mu_sigma=np.stack([np.full(Ot, 128.0), np.full(Ot, 40.0)],
+                                      -1).astype(np.float32),
+                    weight=np.full(Ot, 5.0, np.float32), valid=np.ones(Ot, bool), level=0)
+    theta = np.tile(np.array([0.05, -0.02, -0.25], np.float32), (max(n_text, 1), 1))
+    return dict(poses=poses, pose_free=np.array([False] + [True] * (n_kf - 1)), rho=rho,
+                rho_free=np.ones(n_pts, bool), theta=theta,
+                theta_free=np.array([with_text] * max(n_text, 1)), scene=scene, text=text,
+                images=images, fx=fx, fy=fy, cx=cx, cy=cy)
 
 
 def _horn_alignment(P1: np.ndarray, P2: np.ndarray) -> tuple:

@@ -12,8 +12,8 @@ semantic loop closing (Levenshtein detection on text strings, Sim3 RANSAC
 and refinement, landmark fusion, the Sim3 pose graph, the global and
 landmark-only bundle adjustments), checkpoint/resume in the JAX package's
 file format, the dataset reader and the command-line entry point
-(`python -m textslam_tpu_torch.cli`). The multi-device paths are not ported
-yet.
+(`python -m textslam_tpu_torch.cli`), and scale-out over a device mesh
+(`parallel/`: the sharded bundle adjustment, covisibility and extraction).
 
 Plain tensor code is PyTorch; every Pallas kernel of the JAX package becomes
 a hand-written Hopper kernel under `csrc/`. The package never imports jax,

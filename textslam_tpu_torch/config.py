@@ -284,14 +284,15 @@ class ParallelConfig:
 
     # devices for windowed/global BA: 0 or 1 = single-device solve_ba;
     # >1 = Tracker._local_ba dispatches to parallel.ba_sharded.solve_ba_sharded
-    # over a mesh of this many devices (capped to jax.device_count()).
+    # over a mesh of this many devices (parallel.mesh.make_mesh: capped to
+    # the CUDA device count; on the CPU, this many shards).
     ba_devices: int = 0
     # devices for the covisibility rebuild products (SURVEY.md §2.4 "map
     # sharding"): >1 = SlamMap.rebuild_covis_m1/m23 run the keyframe-axis-
-    # sharded MXU matmul (parallel.covis_sharded) once the map has at least
-    # covis_min_kfs keyframes; below that the host product wins on transfer
-    # cost. covis_min_kfs is the JAX package's default, not yet measured on
-    # the GPU (the port runs the host product only)
+    # sharded float32 matmul (parallel.covis_sharded) once the map has at
+    # least covis_min_kfs keyframes, below that the host product.
+    # covis_min_kfs is the JAX package's default, its crossover on a TPU;
+    # the H100's own is measured by chip_smoke.py phase 9 (PERF.md)
     covis_devices: int = 0
     covis_min_kfs: int = 384
 

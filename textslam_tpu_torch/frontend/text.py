@@ -27,9 +27,15 @@ reproduced), and top-k selections use a stable descending sort so ties keep
 the lower index as lax.top_k does. Every host->device crossing names its
 dtype.
 
+The device-mesh path of the windowed BA (Tracker._local_ba under a mesh)
+builds each level's rows with build_text_obs, from the same per-level code
+as fused_ba_schedule (_level_text_obs), so both paths solve the same rows.
+Where the JAX package's build_text_obs takes mu/sigma at the thetas and host
+poses the solve started from, the port takes them at the current estimate,
+as both packages' fused schedule does.
+
 Not here: the gate-only per-frame hook of frames without a pyramid
-(on_frame_tracked; with text on every frame has one) and the per-level
-windowed BA of the device-mesh path (build_text_obs); see ROADMAP.
+(on_frame_tracked; with text on every frame has one).
 """
 
 from __future__ import annotations
@@ -508,6 +514,34 @@ def fused_theta_optimize_all(theta0, host_poses, quads0, poses, tgt_img, tgt_val
     return theta, H_best, cost_best
 
 
+def _pad_rows(a: np.ndarray, n: int, fill=0) -> np.ndarray:
+    """a padded along its first axis to n rows of `fill`."""
+    return np.pad(a, [(0, n - a.shape[0])] + [(0, 0)] * (a.ndim - 1), constant_values=fill)
+
+
+def _level_text_obs(cur, rows, qrays, pair_lm, pair_tgt, pair_host, pair_hiw, pair_hpose,
+                    feat_uv, ref, fvalid, imgs, level: int, weight_rows, fx, fy, cx, cy):
+    """The text rows of one pyramid level at the CURRENT estimate of `cur`
+    (poses, thetas): each (object, target) pair's host quad projected through
+    its plane into the target, its (mu, sigma) in the target's level image,
+    and the pattern rays of the pair's features at this level."""
+    F = feat_uv.shape[1]
+    O = pair_lm.shape[0] * F
+    poses_ext = torch.cat([cur.poses, se3.identity((1,), device=cur.poses.device)], 0)
+    hpose = torch.where(pair_hiw[:, None], poses_ext[pair_host], pair_hpose)
+    quad_t = _quads_at(qrays, cur.theta[pair_lm], se3.relative(poses_ext[pair_tgt], hpose),
+                       level, fx, fy, cx, cy)
+    mu, sigma, _ = rasterize.quad_stats(imgs[pair_tgt, ..., 0], quad_t)
+    return ba.TextObs(
+        tgt=rows["tgt"], host=rows["host"], host_frozen_pose=rows["hp"],
+        host_in_window=rows["hiw"], text=rows["text"],
+        rays=_level_rows(feat_uv, level, fx, fy, cx, cy).reshape(O, 8, 3),
+        ref_inten=ref,
+        mu_sigma=torch.stack([mu.repeat_interleave(F),
+                              sigma.clamp(min=1e-3).repeat_interleave(F)], -1),
+        weight=weight_rows, valid=fvalid, level=level)
+
+
 def fused_ba_schedule(prob, rows, pair_quads, pair_lm, pair_tgt, pair_host, pair_hiw,
                       pair_hpose, feat_uv_lv, ref_lv, fvalid_lv, imgs_lv, fx, fy, cx, cy,
                       levels: tuple, n_iters: int, huber_scene: float, huber_text: float,
@@ -523,28 +557,16 @@ def fused_ba_schedule(prob, rows, pair_quads, pair_lm, pair_tgt, pair_host, pair
     Returns one flat float32 tensor: poses K*7 | rho P | scene chi2 O_s |
     theta T*3 | per level (|err| 8 | ok 8) Np*F*16 (only when gate)."""
     F = pair_feat
-    Np = pair_quads.shape[0]
-    O = Np * F
-    dev = prob.poses.device
+    O = pair_quads.shape[0] * F
     qrays = unproject(pair_quads, fx, fy, cx, cy)  # [Np, 4, 3]
-    weight_rows = torch.full((O,), weight_text, device=dev)
+    weight_rows = torch.full((O,), weight_text, device=prob.poses.device)
     cur = prob
     gates = []
     for li, level in enumerate(levels):
         imgs = imgs_lv[li]
-        poses_ext = torch.cat([cur.poses, se3.identity((1,), device=dev)], 0)
-        hpose = torch.where(pair_hiw[:, None], poses_ext[pair_host], pair_hpose)
-        quad_t = _quads_at(qrays, cur.theta[pair_lm], se3.relative(poses_ext[pair_tgt], hpose),
-                           level, fx, fy, cx, cy)
-        mu, sigma, _ = rasterize.quad_stats(imgs[pair_tgt, ..., 0], quad_t)
-        tobs = ba.TextObs(
-            tgt=rows["tgt"], host=rows["host"], host_frozen_pose=rows["hp"],
-            host_in_window=rows["hiw"], text=rows["text"],
-            rays=_level_rows(feat_uv_lv[li], level, fx, fy, cx, cy).reshape(O, 8, 3),
-            ref_inten=ref_lv[li],
-            mu_sigma=torch.stack([mu.repeat_interleave(F),
-                                  sigma.clamp(min=1e-3).repeat_interleave(F)], -1),
-            weight=weight_rows, valid=fvalid_lv[li], level=level)
+        tobs = _level_text_obs(cur, rows, qrays, pair_lm, pair_tgt, pair_host, pair_hiw,
+                               pair_hpose, feat_uv_lv[li], ref_lv[li], fvalid_lv[li], imgs,
+                               level, weight_rows, fx, fy, cx, cy)
         cur = cur._replace(text=tobs, images=imgs)
         st = ba._solve_ba_body(cur, n_iters, huber_scene, huber_text, lam0, lam_up, lam_down, F,
                                lam_min=lam_min, lam_max=lam_max, no_free_poses=no_free_poses)
@@ -910,20 +932,42 @@ class TextFrontend:
         return (_f32(quads, dev), _f32(thetas, dev), _f32(hposes, dev), _bool(live, dev),
                 _bool(good, dev))
 
-    def _gates_geo(self, pose_cw: np.ndarray) -> np.ndarray:
-        """Geometric gate (orientation + box in image) of the live pool at
-        a pose, without the appearance gate: [n_texts] bool."""
+    def _pool_gates(self, pose_cw: np.ndarray, img0: torch.Tensor):
+        """The TextJudge gates of the live pool at a pose, with the ZNCC
+        against the level-0 image img0: (geo, full), [n_texts] bool each."""
         m = self.map
         cam = self.cfg.camera
         Tt = pad_tier(max(m.n_texts, 1), 8)
         quads, thetas, hposes, live, _ = self._pool_rows(Tt)
         box_uv, box_int, box_valid = self._pool_dev(Tt)[:3]
-        geo, _, _ = _gates(
+        geo, full, _ = _gates(
             _f32(pose_cw, self.device), quads, thetas, hposes, live, box_uv, box_int, box_valid,
-            torch.zeros((8, 8), device=self.device), cam.fx, cam.fy, cam.cx, cam.cy,
-            self.cfg.text.in_image_margin, self.cfg.text.cos_orientation_min,
-            self.cfg.text.zncc_min, cam.width, cam.height)
-        return geo.cpu().numpy()[: m.n_texts]
+            img0, cam.fx, cam.fy, cam.cx, cam.cy, self.cfg.text.in_image_margin,
+            self.cfg.text.cos_orientation_min, self.cfg.text.zncc_min, cam.width, cam.height)
+        both = torch.stack([geo, full]).cpu().numpy()[:, : m.n_texts]
+        return both[0], both[1]
+
+    def _gates_geo(self, pose_cw: np.ndarray) -> np.ndarray:
+        """Geometric gate (orientation + box in image) of the live pool at
+        a pose, without the appearance gate: [n_texts] bool."""
+        return self._pool_gates(pose_cw, torch.zeros((8, 8), device=self.device))[0]
+
+    def visible_texts(self, pose_cw: np.ndarray, frame, states=(TEXT_GOOD,)) -> List[int]:
+        """Ids of the objects in `states` that pass the TextJudge gates at
+        pose_cw: orientation and box in image, and with a frame also the
+        ZNCC against its level-0 image (a frame without a pyramid fails
+        it)."""
+        m = self.map
+        if frame is not None and frame.pyr_shapes is not None:
+            h, w = int(frame.pyr_shapes[0][0]), int(frame.pyr_shapes[0][1])
+            pyr = (frame.pyr_dev if frame.pyr_dev is not None
+                   else _f32(frame.pyr_data, self.device))
+            img0 = pyr[0, :h, :w, 0]
+        else:
+            img0 = torch.zeros((8, 8), device=self.device)
+        geo, full = self._pool_gates(pose_cw, img0)
+        mask = full if frame is not None else geo
+        return [t for t in range(m.n_texts) if mask[t] and m.tx_state[t] in states]
 
     # ------------------------------------------------------------------
     # the windowed BA's text inputs
@@ -974,15 +1018,12 @@ class TextFrontend:
             "target_kids": tgt_kids,
         }, tids, tid_to_lm
 
-    def fused_ba_inputs(self, pairs, tid_to_lm, window_kids, levels, K_pad):
-        """Host-side packing of fused_ba_schedule's text inputs for every
-        level. Returns a dict, or None when no window KF has a pyramid.
-        Pair arrays are padded to [Np], row arrays to [O = Np*F]."""
+    def _ba_pair_inputs(self, pairs, tid_to_lm) -> dict:
+        """The level-independent text inputs of one windowed BA, uploaded
+        once: pair arrays padded to [Np] (pair_quads, pair_lm, pair_tgt,
+        pair_host, pair_hiw, pair_hpose) and row arrays padded to
+        [O = Np*F] (rows: tgt, host, hp, hiw, text)."""
         m = self.map
-        ref_kf = next((m.keyframes[k] for k in window_kids
-                       if m.keyframes[k].pyr_shapes is not None), None)
-        if ref_kf is None:
-            return None
         dev = self.device
         n_pairs = len(pairs["tids"])
         F = self.cfg.text.max_features_per_level
@@ -990,49 +1031,100 @@ class TextFrontend:
         O = Np * F
         O_real = n_pairs * F
         tids_np = np.asarray(pairs["tids"], np.int64)
-
-        def padp(a, n, fill=0):
-            return np.pad(a, [(0, n - a.shape[0])] + [(0, 0)] * (a.ndim - 1),
-                          constant_values=fill)
-
-        quads_p = padp(m.tx_quad[tids_np], Np)
-        lm_p = padp(np.asarray([tid_to_lm[t] for t in pairs["tids"]], np.int64), Np)
-        tgt_p = padp(np.asarray(pairs["target_slots"], np.int64), Np)
-        host_p = padp(np.asarray(pairs["host_slots"], np.int64), Np)
-        hiw_p = padp(np.asarray(pairs["host_in_window"], bool), Np, False)
+        quads_p = _pad_rows(m.tx_quad[tids_np], Np)
+        lm_p = _pad_rows(np.asarray([tid_to_lm[t] for t in pairs["tids"]], np.int64), Np)
+        tgt_p = _pad_rows(np.asarray(pairs["target_slots"], np.int64), Np)
+        host_p = _pad_rows(np.asarray(pairs["host_slots"], np.int64), Np)
+        hiw_p = _pad_rows(np.asarray(pairs["host_in_window"], bool), Np, False)
         hpose = np.asarray(pairs["host_poses"], np.float32)
-        hpose_p = padp(hpose, Np)
+        hpose_p = _pad_rows(hpose, Np)
         hpose_p[n_pairs:, 0] = 1.0
-        hp_rows = padp(np.repeat(hpose, F, axis=0), O)
+        hp_rows = _pad_rows(np.repeat(hpose, F, axis=0), O)
         hp_rows[O_real:, 0] = 1.0
         rows = dict(
-            tgt=_i64(padp(np.repeat(tgt_p[:n_pairs], F), O), dev),
-            host=_i64(padp(np.repeat(host_p[:n_pairs], F), O), dev),
+            tgt=_i64(_pad_rows(np.repeat(tgt_p[:n_pairs], F), O), dev),
+            host=_i64(_pad_rows(np.repeat(host_p[:n_pairs], F), O), dev),
             hp=_f32(hp_rows, dev),
-            hiw=_bool(padp(np.repeat(hiw_p[:n_pairs], F), O, False), dev),
-            text=_i64(padp(np.repeat(lm_p[:n_pairs], F), O), dev),
+            hiw=_bool(_pad_rows(np.repeat(hiw_p[:n_pairs], F), O, False), dev),
+            text=_i64(_pad_rows(np.repeat(lm_p[:n_pairs], F), O), dev),
         )
-        feat_uv_lv, ref_lv, fvalid_lv = [], [], []
-        for level in levels:
-            fvalid = m.tx_feat_valid[tids_np, level].copy()
-            for i, (tid, k) in enumerate(zip(pairs["tids"], pairs["target_kids"])):
-                fg = m.tx_feat_good.get((k, tid))
-                if fg is not None:
-                    fvalid[i] &= fg[level]
-            feat_uv_lv.append(_f32(padp(m.tx_feat_uv[tids_np, level], Np), dev))
-            ref_lv.append(_f32(padp(m.tx_feat_ref[tids_np, level].reshape(O_real, 8), O), dev))
-            fvalid_lv.append(_bool(padp(fvalid.reshape(O_real), O, False), dev))
         return dict(rows=rows, pair_quads=_f32(quads_p, dev), pair_lm=_i64(lm_p, dev),
                     pair_tgt=_i64(tgt_p, dev), pair_host=_i64(host_p, dev),
                     pair_hiw=_bool(hiw_p, dev), pair_hpose=_f32(hpose_p, dev),
-                    feat_uv_lv=tuple(feat_uv_lv), ref_lv=tuple(ref_lv),
-                    fvalid_lv=tuple(fvalid_lv),
-                    # the window's level stacks, built once per solve in the
-                    # layout the region sampler reads
-                    imgs_lv=self._stack_levels(
-                        [m.kf_pyr_dev(m.keyframes[k]) for k in window_kids],
-                        ref_kf.pyr_shapes, levels, K_pad),
                     n_pairs=n_pairs, Np=Np)
+
+    def _ba_level_inputs(self, pairs, level: int, Np: int):
+        """One level's feature inputs of the windowed BA: (feat_uv [Np, F,
+        2] level px, ref [O, 8], fvalid [O]); a feature that failed the chi2
+        gate at its target KF stays out."""
+        m = self.map
+        dev = self.device
+        F = self.cfg.text.max_features_per_level
+        O = Np * F
+        tids_np = np.asarray(pairs["tids"], np.int64)
+        O_real = len(tids_np) * F
+        fvalid = m.tx_feat_valid[tids_np, level].copy()
+        for i, (tid, k) in enumerate(zip(pairs["tids"], pairs["target_kids"])):
+            fg = m.tx_feat_good.get((k, tid))
+            if fg is not None:
+                fvalid[i] &= fg[level]
+        return (_f32(_pad_rows(m.tx_feat_uv[tids_np, level], Np), dev),
+                _f32(_pad_rows(m.tx_feat_ref[tids_np, level].reshape(O_real, 8), O), dev),
+                _bool(_pad_rows(fvalid.reshape(O_real), O, False), dev))
+
+    def fused_ba_inputs(self, pairs, tid_to_lm, window_kids, levels, K_pad):
+        """Host-side packing of fused_ba_schedule's text inputs for every
+        level. Returns a dict, or None when no window KF has a pyramid.
+        Pair arrays are padded to [Np], row arrays to [O = Np*F]."""
+        imgs_lv = self.gather_level_images(window_kids, levels, K_pad)
+        if imgs_lv is None:
+            return None
+        out = self._ba_pair_inputs(pairs, tid_to_lm)
+        per_level = [self._ba_level_inputs(pairs, level, out["Np"]) for level in levels]
+        feat_uv_lv, ref_lv, fvalid_lv = (tuple(x) for x in zip(*per_level))
+        return dict(out, feat_uv_lv=feat_uv_lv, ref_lv=ref_lv, fvalid_lv=fvalid_lv,
+                    imgs_lv=imgs_lv)
+
+    def gather_level_images(self, window_kids, levels, K_pad: int):
+        """Per level, the [K_pad, H_l, W_l, 3] device stack of the window's
+        keyframe pyramids in the layout the region sampler reads (zero slots
+        for keyframes without a pyramid and past the window), built once
+        per solve; None when no window KF has a pyramid."""
+        m = self.map
+        ref_kf = next((m.keyframes[k] for k in window_kids
+                       if m.keyframes[k].pyr_shapes is not None), None)
+        if ref_kf is None:
+            return None
+        return self._stack_levels([m.kf_pyr_dev(m.keyframes[k]) for k in window_kids],
+                                  ref_kf.pyr_shapes, levels, K_pad)
+
+    def build_text_obs(self, pairs, tid_to_lm, prob, level: int, images, weight=None,
+                       cache=None):
+        """The padded text rows (TextObs) of one pyramid level of a windowed
+        BA whose pairs come from ba_text_batches, at the current estimate of
+        `prob` (poses, thetas; the mu/sigma recompute of
+        src/optimizer.cc:1179-1184, as fused_ba_schedule does), sampling
+        the level's stack `images` (from gather_level_images). `cache` is a dict
+        the caller keeps for one windowed solve: the level-independent
+        inputs (pair geometry and row metadata) are built and uploaded once
+        and reused across the coarse-to-fine levels. Rows are laid out as
+        in fused_ba_schedule: [Np, F], F = max_features_per_level."""
+        c = {} if cache is None else cache
+        if "pairs" not in c:
+            fi = self._ba_pair_inputs(pairs, tid_to_lm)
+            cam = self.cfg.camera
+            w = self.cfg.solver.weight_text if weight is None else weight
+            fi["qrays"] = unproject(fi["pair_quads"], cam.fx, cam.fy, cam.cx, cam.cy)
+            fi["weight_rows"] = torch.full((fi["Np"] * self.cfg.text.max_features_per_level,),
+                                           w, device=self.device)
+            c["pairs"] = fi
+        fi = c["pairs"]
+        cam = self.cfg.camera
+        feat_uv, ref, fvalid = self._ba_level_inputs(pairs, level, fi["Np"])
+        return _level_text_obs(prob, fi["rows"], fi["qrays"], fi["pair_lm"], fi["pair_tgt"],
+                               fi["pair_host"], fi["pair_hiw"], fi["pair_hpose"], feat_uv, ref,
+                               fvalid, images, level, fi["weight_rows"], cam.fx, cam.fy, cam.cx,
+                               cam.cy)
 
     # ------------------------------------------------------------------
     # tracker hooks

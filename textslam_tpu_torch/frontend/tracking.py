@@ -12,7 +12,11 @@ Port of textslam_tpu/frontend/tracking.py:
   (frontend.text.fused_ba_schedule) when the text frontend is on;
 - the loop closer's global passes through the same _local_ba: the
   scene-only BA over every keyframe and the landmark-only refinement
-  (all poses fixed, the OptimizeLandmarker schedule).
+  (all poses fixed, the OptimizeLandmarker schedule);
+- with a device mesh (ParallelConfig.ba_devices > 1, or a Mesh set on
+  `Tracker.mesh`), every one of those solves runs the sharded LM
+  (parallel.ba_sharded.solve_ba_sharded), level by level with the text
+  rows (TextFrontend.build_text_obs) and the deferred text gates.
 
 Host Python does the bookkeeping (numpy map); every crossing to the device
 names its dtype (float32 / int64 / bool, descriptors as int32 bits), since
@@ -251,6 +255,12 @@ class Tracker:
         # optional [P]-mask filter of the matching candidates (tests inject
         # drift / amnesia here)
         self.pt_candidate_hook = None
+        # device mesh of the windowed / global BA: when set, _local_ba runs
+        # the sharded LM (parallel.ba_sharded) instead of the single-device
+        # solver
+        from ..parallel.mesh import make_mesh
+
+        self.mesh = make_mesh(cfg.parallel.ba_devices, self.device)
 
     # ------------------------------------------------------------------
     def process(self, frame: Frame) -> bool:
@@ -635,14 +645,60 @@ class Tracker:
             m.update_covis_on_obs(cur.kid, np.asarray(new_pids))
 
     def _solve(self, prob: ba.BAProblem, n_iters: int, huber_scene: float,
-               no_free_poses: bool = False) -> ba.LMState:
-        """Windowed BA solve with the config's LM damping schedule."""
+               huber_text: float = 3.0, no_free_poses: bool = False) -> ba.LMState:
+        """Windowed / global BA solve with the config's LM damping schedule:
+        solve_ba, or the sharded LM over the mesh when one is set (which
+        does not take the all-poses-fixed shortcut; the camera step is zero
+        either way)."""
         scfg = self.cfg.solver
-        return ba.solve_ba(
-            prob, n_iters=n_iters, huber_scene=huber_scene,
-            lam0=scfg.lm_lambda_init, lam_up=scfg.lm_lambda_up,
-            lam_down=scfg.lm_lambda_down, lam_min=scfg.lm_min_lambda,
-            lam_max=scfg.lm_max_lambda, no_free_poses=no_free_poses)
+        kw = dict(n_iters=n_iters, huber_scene=huber_scene, huber_text=huber_text,
+                  lam0=scfg.lm_lambda_init, lam_up=scfg.lm_lambda_up,
+                  lam_down=scfg.lm_lambda_down, lam_min=scfg.lm_min_lambda,
+                  lam_max=scfg.lm_max_lambda)
+        if self.mesh is not None:
+            from ..parallel import ba_sharded
+
+            return ba_sharded.solve_ba_sharded(prob, self.mesh, **kw)
+        return ba.solve_ba(prob, no_free_poses=no_free_poses, **kw)
+
+    def _mesh_text_schedule(self, prob, text_part, window_kids, levels, K: int, huber: float,
+                            landmark_only: bool, init_ba: bool, gate_on: bool, no_free: bool):
+        """The coarse-to-fine joint BA over the mesh, level by level:
+        gather the window's level images, build the level's text rows at the
+        current estimate, run the sharded LM, and take the deferred text
+        gate's errors through the region sampler (ba.text_sample_errors with
+        pair_feat=F). Returns (the packed readback in fused_ba_schedule's
+        layout, [(level, gate values)]), or (None, []) when no window KF has
+        a pyramid."""
+        tf = self.text_frontend
+        scfg = self.cfg.solver
+        F = self.cfg.text.max_features_per_level
+        pairs, _, tid_to_lm = text_part
+        with phase("ba.gather_imgs"):
+            imgs_lv = tf.gather_level_images(window_kids, levels, K)
+        if imgs_lv is None:
+            return None, []
+        cache = {}  # the level-independent text inputs, built once
+        cur, gates = prob, []
+        for level, imgs in zip(levels, imgs_lv):
+            with phase("ba.build_text_obs"):
+                tobs = tf.build_text_obs(pairs, tid_to_lm, cur, level, imgs,
+                                         weight=1.0 if init_ba else None, cache=cache)
+            cur = cur._replace(text=tobs, images=imgs)
+            with phase("ba.solve_joint"):
+                st = self._solve(
+                    cur, n_iters=scfg.iters_landmark if landmark_only else scfg.iters_per_level,
+                    huber_scene=huber,
+                    huber_text=scfg.huber_theta if landmark_only else scfg.huber_text,
+                    no_free_poses=no_free)
+            cur = cur._replace(poses=st.poses, rho=st.rho, theta=st.theta)
+            if gate_on:
+                with phase("ba.gate_text"):
+                    err, ok = ba.text_sample_errors(cur, pair_feat=F)
+                    gates.append(torch.cat([err, ok.float()], dim=-1).reshape(-1))
+        chi2, _ = ba.scene_chi2(cur._replace(text=None, images=None), scfg.huber_scene_pose)
+        packed = torch.cat([cur.poses.reshape(-1), cur.rho, chi2, cur.theta.reshape(-1)] + gates)
+        return packed.cpu().numpy(), [(lv, g.numel()) for lv, g in zip(levels, gates)]
 
     def _local_ba(self, window_kids, fix, init_ba: bool = False,
                   scene_only: bool = False, landmark_only: bool = False):
@@ -744,7 +800,8 @@ class Tracker:
         text_part = None
         if tf is not None and not scene_only and (not init_ba or scfg.joint_init_ba):
             text_part = tf.ba_text_batches(window_kids, {k: i for i, k in enumerate(window_kids)}, K)
-        fused_inputs = theta_meta = None
+        fused_inputs = theta_meta = packed = None
+        gate_outs = []
         levels = (self.cfg.pyramid.landmark_levels if landmark_only
                   else self.cfg.pyramid.init_ba_levels if init_ba else self.cfg.pyramid.ba_levels)
         F = self.cfg.text.max_features_per_level
@@ -758,8 +815,13 @@ class Tracker:
             theta_free[: len(tids)] = [int(m.tx_host[t]) in window_kids for t in tids]
             theta_meta = (tids, theta_free)
             prob = prob._replace(theta=_f32(theta, dev), theta_free=_bool(theta_free, dev))
-            with phase("ba.fused_inputs"):
-                fused_inputs = tf.fused_ba_inputs(pairs, tid_to_lm, window_kids, levels, K)
+            if self.mesh is None:
+                with phase("ba.fused_inputs"):
+                    fused_inputs = tf.fused_ba_inputs(pairs, tid_to_lm, window_kids, levels, K)
+            else:
+                packed, gate_outs = self._mesh_text_schedule(
+                    prob, text_part, window_kids, levels, K, huber, landmark_only, init_ba,
+                    gate_on, no_free)
 
         if fused_inputs is not None:
             # the whole coarse-to-fine schedule: per-level pair geometry, LM,
@@ -783,7 +845,8 @@ class Tracker:
                     lam_down=scfg.lm_lambda_down, lam_min=scfg.lm_min_lambda,
                     lam_max=scfg.lm_max_lambda).cpu().numpy()
             gate_outs = [(lv, fi["Np"] * F * 16) for lv in levels] if gate_on else []
-        else:
+        elif packed is None:
+            # no text rows (or no window KF with a pyramid): the scene solve
             with phase("ba.solve_scene"):
                 st = self._solve(prob, n_iters=n_it, huber_scene=huber, no_free_poses=no_free)
                 chi2, _ = ba.scene_chi2(prob._replace(poses=st.poses, rho=st.rho),
@@ -793,7 +856,6 @@ class Tracker:
                     parts.append(prob.theta.reshape(-1))
                 # ONE packed readback: poses, rho, per-observation chi2
                 packed = torch.cat(parts).cpu().numpy()
-            gate_outs = []
 
         poses = packed[: K * 7].reshape(K, 7)
         for k, kid in enumerate(window_kids):

@@ -13,8 +13,11 @@ older keyframes keep only the host mirror, uploaded again on demand through
 a small LRU (kf_pyr_dev).
 
 Loop closing fuses duplicated landmarks (replace_point / replace_text) and
-records loop edges on both keyframes. Not here yet: the native covisibility
-product and its sharded variant (the numpy product is used).
+records loop edges on both keyframes. The covisibility rebuilds take the
+numpy product, or the keyframe-axis-sharded device product
+(parallel.covis_sharded) when ParallelConfig.covis_devices > 1 and the map
+holds at least covis_min_kfs keyframes. Not here yet: the JAX package's
+native (C++) host product.
 """
 
 from __future__ import annotations
@@ -141,6 +144,10 @@ class SlamMap:
         self.M1 = np.zeros((K, K), np.int32)
         self.M2 = np.zeros((K, K), np.int32)
         self.M3 = np.zeros((K, K), np.int32)
+        # optional keyframe-axis-sharded rebuild over a mesh on `device`
+        from ..parallel.mesh import make_mesh
+
+        self._covis_mesh = make_mesh(cfg.parallel.covis_devices, device)
 
     # ---------------- pool saturation ----------------
 
@@ -389,16 +396,28 @@ class SlamMap:
             self.M1[kid, k2] += c
             self.M1[k2, kid] += c
 
+    def _covis_product(self, inc: np.ndarray, w=None) -> np.ndarray:
+        """inc @ inc.T (or (inc * w) @ inc.T) with a zero diagonal, int32:
+        on the mesh when one is set and the map holds at least covis_min_kfs
+        keyframes (the JAX package's crossover on a TPU; chip_smoke.py phase
+        9 measures the card's), else numpy on the host."""
+        if self._covis_mesh is not None and inc.shape[0] >= self.cfg.parallel.covis_min_kfs:
+            from ..parallel import covis_sharded
+
+            return covis_sharded.covis_product(inc, self._covis_mesh, w=w)
+        inc_i = inc.astype(np.int32)
+        M = (inc_i if w is None else inc_i * np.asarray(w, np.int32)[None, :]) @ inc_i.T
+        np.fill_diagonal(M, 0)
+        return M
+
     def rebuild_covis_m1(self):
-        """Full M1 recompute as an incidence-matrix product (numpy)."""
+        """Full M1 recompute as an incidence-matrix product."""
         K = len(self.keyframes)
         self.M1[:] = 0
         if K == 0:
             return
-        inc = self._point_incidence().astype(np.int32)
-        M = inc @ inc.T
-        np.fill_diagonal(M, 0)
-        self.M1[:K, :K] = M
+        inc = self._point_incidence()
+        self.M1[:K, :K] = self._covis_product(inc)
         n = min(self.n_points, inc.shape[1])
         self.pt_n_obs[:n] = inc[:, :n].sum(0)
 
@@ -412,14 +431,13 @@ class SlamMap:
         T = self.n_texts
         if K == 0 or T == 0:
             return
-        inc = np.zeros((K, T), np.int64)
+        inc = np.zeros((K, T), bool)
         for (k, t) in self.tx_obs:
             if t < T and self.tx_valid[t]:
-                inc[k, t] = 1
+                inc[k, t] = True
         w = self.tx_feat_valid[:T, 0].sum(axis=1)
-        for M, prod in ((self.M2, inc @ inc.T), (self.M3, (inc * w[None, :]) @ inc.T)):
-            np.fill_diagonal(prod, 0)
-            M[:K, :K] = prod
+        self.M2[:K, :K] = self._covis_product(inc)
+        self.M3[:K, :K] = self._covis_product(inc, w=w)
 
     def covisible_kfs_sorted(self, kid: int):
         """(kids, weights) of the KFs with M1[kid] > 0, by weight descending

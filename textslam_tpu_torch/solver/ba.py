@@ -486,10 +486,88 @@ def text_region_coverage(problem: BAProblem, pair_feat: int):
 # ---------------------------------------------------------------------------
 
 
-def _apply_update(problem: BAProblem, delta_c, delta_rho, delta_theta):
-    K = problem.poses.shape[0]
-    d = delta_c[: 6 * K].reshape(K, 6) * problem.pose_free[:, None]
-    poses = torch.where(problem.pose_free[:, None], se3.retract(problem.poses, d), problem.poses)
+def rho_inv(Hr: torch.Tensor, lam) -> torch.Tensor:
+    """The damped inverse of the 1x1 point blocks Hr [P, 1, 1]; 0 for an
+    unobserved point."""
+    Hr_d = Hr[:, 0, 0] * (1.0 + lam) + 1e-8
+    return torch.where(Hr[:, 0, 0] > 1e-12, 1.0 / Hr_d, torch.zeros_like(Hr_d))
+
+
+def theta_inv(Ht: torch.Tensor, lam) -> torch.Tensor:
+    """The damped inverse of the 3x3 text blocks Ht [T, 3, 3]:
+    H + diag(lam * diag(H) + 1e-8), the JAX solver's damping shape."""
+    return inv3x3_spd(Ht + (lam * Ht + 1e-8) * torch.eye(3, device=Ht.device))
+
+
+def reduced_camera_solve(H_red: torch.Tensor, b_red: torch.Tensor, pose_free: torch.Tensor,
+                         lam) -> torch.Tensor:
+    """The camera step of the reduced (Schur) system H_red [n, n], b_red
+    [n]: Jacobi-scaled, damped by lam + 1e-8 on the scaled diagonal, fixed
+    poses and the 6 padding rows pinned to identity, Cholesky solve.
+    Returns delta_c [n], zero on fixed poses."""
+    n = H_red.shape[0]
+    dev = H_red.device
+    free = torch.cat([pose_free.repeat_interleave(6), torch.zeros(6, dtype=torch.bool, device=dev)])
+    diag = torch.diagonal(H_red)
+    Dinv = 1.0 / torch.sqrt(torch.where(free & (diag > 1e-12), diag, torch.ones_like(diag)))
+    Hs = H_red * Dinv[:, None] * Dinv[None, :]
+    Hs = torch.where(free[:, None] & free[None, :], Hs, 0.0)
+    Hs = Hs + (lam + 1e-8) * torch.eye(n, device=dev) + torch.diag((~free).float())
+    bs = torch.where(free, b_red * Dinv, 0.0)
+    L, info = torch.linalg.cholesky_ex(Hs)
+    L = torch.where(info == 0, L, float("nan"))  # jnp.linalg.cholesky semantics
+    return torch.cholesky_solve(-bs[:, None], L)[:, 0] * Dinv * free
+
+
+def damped_step(problem: BAProblem, sys, lam, no_free_poses: bool = False):
+    """The damped LM step (delta_c, drho, dtheta) from an assembled system
+    sys = (Hcc, bc, Wr, Hr, br, Wt, Ht, bt) (absent families as 1-element
+    placeholders): the point and text blocks are eliminated by Schur
+    complement, the reduced camera system solved, and the landmarks
+    back-substituted. `problem` gives the families present, pose_free and
+    the landmark shapes. no_free_poses: every pose block is fixed, so the
+    landmark blocks decouple and each solves alone (delta_c is zero)."""
+    Hcc, bc, Wr, Hr, br, Wt, Ht, bt = sys
+    has_scene, has_text = problem.scene is not None, problem.text is not None
+    n = 6 * (problem.poses.shape[0] + 1)
+    zero_theta = None if problem.theta is None else torch.zeros_like(problem.theta)
+    drho, dtheta = torch.zeros_like(problem.rho), zero_theta
+    if no_free_poses:
+        if has_scene:
+            drho = rho_inv(Hr, lam) * (-br[:, 0])
+        if has_text:
+            dtheta = (theta_inv(Ht, lam) @ -bt[..., None])[..., 0]
+        return torch.zeros(n, device=problem.poses.device), drho, dtheta
+    H_red, b_red = Hcc, bc
+    if has_scene:
+        Hr_inv = rho_inv(Hr, lam)
+        W2 = Wr[:, :, 0]  # [P, n]
+        WHinv = W2 * Hr_inv[:, None]
+        H_red = H_red - WHinv.T @ W2
+        b_red = b_red - WHinv.T @ br[:, 0]
+    if has_text:
+        Ht_inv = theta_inv(Ht, lam)
+        WtHinv = Wt @ Ht_inv  # [T, n, 3]
+        H_red = H_red - torch.einsum("pid,pjd->ij", WtHinv, Wt)
+        b_red = b_red - torch.einsum("pid,pd->i", WtHinv, bt)
+    delta_c = reduced_camera_solve(H_red, b_red, problem.pose_free, lam)
+    if has_scene:
+        drho = Hr_inv * (-br[:, 0] - W2 @ delta_c)
+    if has_text:
+        dtheta = (Ht_inv @ (-bt - torch.einsum("pid,i->pd", Wt, delta_c))[..., None])[..., 0]
+    return delta_c, drho, dtheta
+
+
+def retract_poses(poses: torch.Tensor, pose_free: torch.Tensor, delta_c: torch.Tensor):
+    """Poses [K, 7] moved by the camera step delta_c [6 (K + 1)] where free."""
+    K = poses.shape[0]
+    d = delta_c[: 6 * K].reshape(K, 6) * pose_free[:, None]
+    return torch.where(pose_free[:, None], se3.retract(poses, d), poses)
+
+
+def apply_update(problem: BAProblem, delta_c, delta_rho, delta_theta):
+    """(poses, rho, theta) of `problem` moved by a damped_step."""
+    poses = retract_poses(problem.poses, problem.pose_free, delta_c)
     rho = problem.rho + delta_rho * problem.rho_free
     theta = problem.theta
     if theta is not None:
@@ -524,7 +602,12 @@ def solve_ba(
 
 
 def _solve_ba_body(problem, n_iters, huber_scene, huber_text, lam0, lam_up, lam_down,
-                   text_pair_feat=0, lam_min=1e-12, lam_max=1e8, no_free_poses=False):
+                   text_pair_feat=0, lam_min=1e-12, lam_max=1e8, no_free_poses=False,
+                   build_override=None):
+    """The deferred-accept LM. `build_override` (parallel.ba_sharded: the
+    sharded assembly, summed over the mesh) replaces the single-device
+    `build` below with the same signature; the schedule, damping, Schur
+    elimination and back-substitution are the same either way."""
     K = problem.poses.shape[0]
     P = problem.rho.shape[0]
     n = 6 * (K + 1)
@@ -532,10 +615,6 @@ def _solve_ba_body(problem, n_iters, huber_scene, huber_text, lam0, lam_up, lam_
     has_scene = problem.scene is not None
     has_text = problem.text is not None
     T = problem.theta.shape[0] if has_text else 0
-    free_mask = torch.cat([problem.pose_free.repeat_interleave(6),
-                           torch.zeros(6, dtype=torch.bool, device=dev)])
-    eye = torch.eye(n, device=dev)
-    eye3 = torch.eye(3, device=dev)
     z1 = torch.zeros(1, device=dev)
 
     def build(prob):
@@ -565,55 +644,6 @@ def _solve_ba_body(problem, n_iters, huber_scene, huber_text, lam0, lam_up, lam_
             cost = cost + tt["cost"].sum()
         return (Hcc, bc, Wr, Hr, br, Wt, Ht, bt), cost
 
-    def rho_inv(Hr, lam):
-        Hr_d = Hr[:, 0, 0] * (1.0 + lam) + 1e-8
-        return torch.where(Hr[:, 0, 0] > 1e-12, 1.0 / Hr_d, torch.zeros_like(Hr_d))
-
-    def theta_inv(Ht, lam):
-        # H + diag(lam * diag(H) + 1e-8), the JAX solver's damping shape
-        return inv3x3_spd(Ht + (lam * Ht + 1e-8) * eye3)
-
-    def solve_from(sys, lam):
-        """The damped step (delta_c, drho, dtheta) from an assembled system."""
-        Hcc, bc, Wr, Hr, br, Wt, Ht, bt = sys
-        zero_rho = torch.zeros_like(problem.rho)
-        zero_theta = None if problem.theta is None else torch.zeros_like(problem.theta)
-        if no_free_poses:
-            # landmark blocks decouple completely: per-landmark damped solves
-            drho = rho_inv(Hr, lam) * (-br[:, 0]) if has_scene else zero_rho
-            dtheta = (theta_inv(Ht, lam) @ -bt[..., None])[..., 0] if has_text else zero_theta
-            return torch.zeros(n, device=dev), drho, dtheta
-        H_red, b_red = Hcc, bc
-        if has_scene:
-            Hr_inv = rho_inv(Hr, lam)
-            W2 = Wr[:, :, 0]  # [P, n]
-            WHinv = W2 * Hr_inv[:, None]
-            H_red = H_red - WHinv.T @ W2
-            b_red = b_red - WHinv.T @ br[:, 0]
-        if has_text:
-            Ht_inv = theta_inv(Ht, lam)
-            WtHinv = Wt @ Ht_inv  # [T, n, 3]
-            H_red = H_red - torch.einsum("pid,pjd->ij", WtHinv, Wt)
-            b_red = b_red - torch.einsum("pid,pd->i", WtHinv, bt)
-
-        diag = torch.diagonal(H_red)
-        diag_safe = torch.where(free_mask & (diag > 1e-12), diag, torch.ones_like(diag))
-        Dinv = 1.0 / torch.sqrt(diag_safe)
-        Hs = H_red * Dinv[:, None] * Dinv[None, :]
-        Hs = torch.where(free_mask[:, None] & free_mask[None, :], Hs, 0.0)
-        Hs = Hs + (lam + 1e-8) * eye + torch.diag((~free_mask).float())
-        bs = torch.where(free_mask, b_red * Dinv, 0.0)
-        L, info = torch.linalg.cholesky_ex(Hs)
-        L = torch.where(info == 0, L, float("nan"))  # jnp.linalg.cholesky semantics
-        delta_s = torch.cholesky_solve(-bs[:, None], L)[:, 0]
-        delta_c = delta_s * Dinv * free_mask
-        drho = Hr_inv * (-br[:, 0] - W2 @ delta_c) if has_scene else zero_rho
-        if has_text:
-            dtheta = (Ht_inv @ (-bt - torch.einsum("pid,i->pd", Wt, delta_c))[..., None])[..., 0]
-        else:
-            dtheta = zero_theta
-        return delta_c, drho, dtheta
-
     def params_of(prob):
         return (prob.poses, prob.rho) + ((prob.theta,) if problem.theta is not None else ())
 
@@ -630,8 +660,9 @@ def _solve_ba_body(problem, n_iters, huber_scene, huber_text, lam0, lam_up, lam_
     best_sys = None
     trial = best
     lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
+    assemble = build if build_override is None else build_override
     for it in range(n_iters + 1):
-        sys_t, cost_t = build(with_params(trial))
+        sys_t, cost_t = assemble(with_params(trial))
         if best_sys is None:  # the first build always wins unless non-finite
             best_sys = tuple(torch.zeros_like(a) for a in sys_t)
         finite = torch.isfinite(cost_t)
@@ -644,8 +675,8 @@ def _solve_ba_body(problem, n_iters, huber_scene, huber_text, lam0, lam_up, lam_
         lam = torch.where(accept, lam * lam_down, lam * lam_up).clamp(lam_min, lam_max)
         if it == n_iters:
             break  # the JAX scan's last step computes a trial nobody reads
-        delta_c, drho, dtheta = solve_from(best_sys, lam)
-        new = _apply_update(with_params(best), delta_c, drho, dtheta)
+        step = damped_step(problem, best_sys, lam, no_free_poses)
+        new = apply_update(with_params(best), *step)
         trial = new if len(best) == 3 else new[:2]
     return LMState(poses=best[0], rho=best[1], theta=best[2] if len(best) == 3 else None,
                    lam=lam, cost=best_cost)

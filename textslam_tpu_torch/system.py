@@ -4,6 +4,8 @@ Port of textslam_tpu/system.py: construct map + tracker (+ the text frontend
 unless `Exp noText`) and the loop closer on an explicit device, feed frames
 with their text detections, write TUM output. With text on, the loop closer
 runs at every new keyframe (it returns at once below its keyframe gates).
+ParallelConfig.ba_devices / covis_devices > 1 put the BA and the
+covisibility rebuilds on a device mesh (parallel.mesh.make_mesh).
 """
 
 from __future__ import annotations
@@ -23,8 +25,6 @@ from .loop.closing import LoopCloser
 
 class TextSLAM:
     def __init__(self, cfg: TextSLAMConfig, output_dir: Optional[str] = None, device="cuda"):
-        if cfg.parallel.ba_devices > 1 or cfg.parallel.covis_devices > 1:
-            raise NotImplementedError("multi-device BA / covisibility is not ported yet")
         self.device = check_device(device, "TextSLAM")
         self.cfg = cfg
         self.map = SlamMap(cfg, device=self.device)
