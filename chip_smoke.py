@@ -110,20 +110,55 @@ Phases, each of which must pass (any failure exits non-zero):
    process (1e-5 relative), one solve_ba_sharded held to solve_ba by final
    cost; then NCCL with a world size of 1, equal to the 1-shard mesh
    without a group;
-10. print per-frame and keyframe-insertion times, one JSON line of the
-   scale-out numbers, one JSON line describing the kernels, and last the
-   JSON result line.
+10. the long regime: (a) the native host routines (csrc/native.cpp, built
+   with the host C++ compiler): covis_product bit-equal to the exact product
+   on phase 9(c)'s incidences (K = 5..512 x 32,768 points), timed beside
+   9(c)'s numpy and device products, and levenshtein_batch exactly equal to
+   the Python DP at L = 128 and 256 with empty, ASCII and CJK strings;
+   (b) tests/test_scale_rehearsal.py's fixture through the port
+   (run_long): 200 frames of the 640x480 text world (seed 3,
+   3 boxes per plane) on two out-and-back excursions, TextSLAMConfig() with
+   the pools derived from the sequence length (MapConfig.derive) and
+   global_decompose_kfs 16; its bars (keyframes >= N/8 and below the cap,
+   no saturation drop, at least one loop closed, online-trajectory ATE <
+   0.06, the RSS at the end below 1.6 x the mid-run RSS + 500 MB) and the
+   port's (every closure past 16 keyframes took the decomposed landmark
+   pass, every kernel call equal to its plain version as in phase 7, the
+   tensors on the GPU); a run that closes no loop passes only as the JAX
+   package's own result on this fixture (tests/rehearsal_reference.json,
+   written by tests/rehearsal_reference.py on the CPU: no loop either, and
+   no keyframe left eligible by the covisibility exclusion at any closer
+   run, in either package); a snapshot every 50 frames (median frame and
+   keyframe-insertion ms, closures with their keyframe count, map counts,
+   narrowing, RSS, host_bytes, device memory, the text-plane census of
+   phase 6, printed and not held); then the amnesia run: the same
+   fixture's frames 0..124 with tests/test_e2e_loop.py's amnesia from frame
+   100 on (the landmarks of the keyframes made before frame 50 forgotten),
+   which must close a loop through the decomposed pass, track and keep ATE
+   < 0.06 (its kernel calls not held again); (c) tests/test_long_regime.py's two
+   scene-only fixtures at 640x480: the local-map narrowing of a 2,048-point
+   pool runs, leaves more than 50 candidates at every call and keeps
+   tracking at KF ATE < 0.02; a 1,024-point pool is never passed. 10(b)
+   and (c) run in a process of their own (LongSide, `--long-side OUT`),
+   started after phase 4 and run on the same card beside phases 5-10(a),
+   so that the script stays well within its time limit; their output is
+   printed when they end;
+11. print the wall seconds of each phase, per-frame and
+   keyframe-insertion times, one JSON line of the scale-out numbers, one
+   of the long regime's, one JSON line describing the kernels, and last
+   the JSON result line.
 
     python3 chip_smoke.py --seed-study 0-21
 
 runs only the text pipeline under the given RANSAC seeds and holds each run
-to those bars.
+to those bars; `--long-only` runs only phase 9(c) and phase 10.
 
 Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import json
 import os
@@ -186,6 +221,17 @@ CONVERGED_SHARE_MIN = 0.5
 # operations outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_OPS32 = 67e12
+
+
+T_START = time.perf_counter()  # the script's start, for its wall time
+
+
+def timed(label: str, fn, *args):
+    """fn(*args), its wall seconds printed as `[time] phase <label>`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1046,7 +1092,6 @@ def loop_setup():
     hosted in the first quarter's keyframes. Setting amnesia["cutoff"] to
     None lifts it."""
     import dataclasses
-    import numpy as np
     import torch_synth
     from textslam_tpu_torch import config
     from textslam_tpu_torch.system import TextSLAM
@@ -1059,6 +1104,20 @@ def loop_setup():
         loop=config.LoopConfig(**LOOP_GATES))
     check(not cfg.no_text, "the default configuration runs text")
     slam = TextSLAM(cfg, device="cuda")
+    return slam, frames, dets, gt, world, amnesia_track(slam, N_LOOP_FRAMES // 4,
+                                                        N_LOOP_FRAMES // 2)
+
+
+def amnesia_track(slam, forget_before: int, from_frame: int):
+    """tests/test_e2e_loop.py's amnesia hooks on `slam`: from frame
+    `from_frame` on, the tracker forgets the points and text objects hosted
+    in the keyframes made before frame `forget_before`, so a return to that
+    stretch maps it again and the two eras share no landmark. Returns
+    track(img, t, detections), which feeds a frame as track_monocular does
+    and sets the amnesia at those frames; track.amnesia["cutoff"] = None
+    lifts it."""
+    import numpy as np
+
     amnesia = {"cutoff": None}
 
     def amnesia_hook(pt_valid):
@@ -1079,14 +1138,14 @@ def loop_setup():
     feed = slam.track_monocular
 
     def track(img, t, detections=None):
-        if int(t) == N_LOOP_FRAMES // 4:
+        if int(t) == forget_before:
             amnesia["quarter"] = len(slam.map.keyframes)
-        if int(t) == N_LOOP_FRAMES // 2:
+        if int(t) == from_frame:
             amnesia["cutoff"] = amnesia["quarter"]
         return feed(img, t, detections=detections)
 
     track.amnesia = amnesia
-    return slam, frames, dets, gt, world, track
+    return track
 
 
 def run_loop(card: str):
@@ -1938,6 +1997,664 @@ def run_two_process(card: str):
     return res
 
 
+# the long runs (phase 10(b); chip_scale.py): the rendered worlds, the
+# render pool, the derived configuration and run_long with its snapshots
+LONG_KINDS = ("outback2", "ring", "ring_drift")
+LONG_FPS = 10.0
+RENDER_WORKERS = 4
+RENDER_AHEAD = 12  # frames rendered ahead of the tracker
+
+
+def host_rss_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return float(line.split()[1]) / 1024.0
+    raise RuntimeError("no VmRSS line in /proc/self/status")
+
+
+def world_spec(kind: str, n_frames: int, small: bool = False, boxes_per_plane: int = 4) -> dict:
+    """What make_world builds, as a plain dict the render workers receive."""
+    if kind not in LONG_KINDS:
+        raise ValueError(f"kind must be one of {LONG_KINDS}, got {kind!r}")
+    return {"kind": kind, "n": n_frames, "small": small, "boxes": boxes_per_plane}
+
+
+def make_world(spec: dict):
+    """(world, ground-truth Tcw [n, 7], render(i) -> (frame, detections))."""
+    import numpy as np
+    import torch_synth
+
+    kind, n = spec["kind"], spec["n"]
+    K = torch_synth.K.copy()
+    size = None
+    if spec["small"]:
+        K[:2] /= 2
+        size = (320, 240)
+    if kind == "outback2":
+        world = torch_synth.TextWorld(seed=3, boxes_per_plane=spec["boxes"])
+    elif kind == "ring":
+        world = torch_synth.ring_world(seed=3)
+    else:
+        world = torch_synth.ring_world(seed=3, box_px=((80, 130), (50, 80)))
+    poses = torch_synth.camera_path(n, "outback2" if kind == "outback2" else "ring")
+    g = torch_synth.degrade_schedule(n) if kind == "ring_drift" else np.zeros(n, np.float32)
+    eps = 0.04 * np.clip((g - 0.3) / 0.7, 0.0, 1.0)
+
+    def render(i: int):
+        dets = world.detections(poses[i], K_mat=K, size=size)
+        if eps[i] > 0:
+            Km = K.copy()
+            Km[:2, :2] *= 1.0 + eps[i]
+            img = world.render(poses[i], K_mat=Km, size=size)
+        else:
+            img = world.render(poses[i], K_mat=K, size=size)
+        if g[i] > 0:
+            img = torch_synth.degrade_frame(img, np.random.default_rng([9, i]), float(g[i]))
+        return img, (dets if g[i] < 0.3 else [])
+
+    return world, poses, render
+
+
+_WORKER = {}
+
+
+def _init_worker(spec: dict):
+    _WORKER["render"] = make_world(spec)[2]
+
+
+def _render(i: int):
+    return _WORKER["render"](i)
+
+
+def frame_stream(spec: dict, stop: int | None = None, workers: int = RENDER_WORKERS,
+                 ahead: int = RENDER_AHEAD):
+    """Yield (frame, detections) for frames 0..stop-1 (stop: the sequence's
+    end by default) in order, rendered by `workers` spawned processes
+    (started with this process's sys.path) at most `ahead` frames ahead. The
+    pool stops when the generator ends or is closed."""
+    import concurrent.futures
+    import multiprocessing
+
+    stop = spec["n"] if stop is None else stop
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_init_worker, initargs=(spec,)) as ex:
+        pending = collections.deque()
+        try:
+            for i in range(stop):
+                while len(pending) < ahead and i + len(pending) < stop:
+                    pending.append(ex.submit(_render, i + len(pending)))
+                yield pending.popleft().result()
+        finally:
+            for f in pending:
+                f.cancel()
+
+
+def long_config(n_frames: int, small: bool = False, decompose_kfs: int | None = None):
+    """TextSLAMConfig() with text on, the renderer's camera at LONG_FPS, the
+    pools derived from the sequence length, and optionally
+    solver.global_decompose_kfs."""
+    import dataclasses
+    import torch_synth
+    from textslam_tpu_torch import config
+
+    if small:
+        cfg = config.TextSLAMConfig(
+            camera=config.CameraConfig(fx=torch_synth.FX / 2, fy=torch_synth.FY / 2,
+                                       cx=torch_synth.CX / 2, cy=torch_synth.CY / 2,
+                                       width=320, height=240, fps=LONG_FPS),
+            orb=config.ORBConfig(n_features=500, n_features_init=1500))
+    else:
+        cfg = config.TextSLAMConfig(camera=config.CameraConfig(
+            fx=torch_synth.FX, fy=torch_synth.FY, cx=torch_synth.CX, cy=torch_synth.CY,
+            width=torch_synth.W, height=torch_synth.H, fps=LONG_FPS))
+    cfg = dataclasses.replace(cfg, map=config.MapConfig.derive(n_frames, LONG_FPS, cfg.map))
+    if decompose_kfs is not None:
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, global_decompose_kfs=decompose_kfs))
+    return cfg
+
+
+def _sync_device(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_long(slam, frames, gt, every: int, card: str, check_ms=lambda: 0.0, census=None,
+             log=print) -> dict:
+    """Feed `frames` ((frame, detections) pairs, ground truth `gt`) to
+    `slam` and take a snapshot every `every` frames. Host times are
+    synchronized and leave out check_ms() (checks made inside, as in
+    chip_smoke.drive). census(), if given, returns a line printed in each
+    snapshot. Returns the run's results."""
+    import numpy as np
+    import torch
+    import torch_synth
+    from textslam_tpu_torch.utils.profiling import report
+
+    dev = slam.device
+    m, tr, lc = slam.map, slam.tracker, slam.loop_closer
+    tf = tr.text_frontend
+    closures, narrow = [], {"calls": 0, "min_candidates": None}
+    run, narrow_fn = lc.run, tr._narrow_to_local_map
+    theta_pass = tf.landmark_theta_pass if tf is not None else None
+    theta_calls = [0]
+
+    def run_timed(kid):
+        n_theta, K = theta_calls[0], len(m.keyframes)
+        _sync_device(dev)
+        t0, c0 = time.perf_counter(), check_ms()
+        closed = run(kid)
+        _sync_device(dev)
+        if closed:
+            closures.append({"kid": kid, "K": K, "loop": list(lc.closed_loops[-1]),
+                             "ms": (time.perf_counter() - t0) * 1e3 - (check_ms() - c0),
+                             "decomposed": theta_calls[0] > n_theta})
+        return closed
+
+    def theta_counted():
+        theta_calls[0] += 1
+        return theta_pass()
+
+    def narrow_counted(frame, pt_valid):
+        out = narrow_fn(frame, pt_valid)
+        n = int(out[: m.n_points].sum())
+        narrow["calls"] += 1
+        narrow["min_candidates"] = n if narrow["min_candidates"] is None else min(
+            narrow["min_candidates"], n)
+        return out
+
+    lc.run, tr._narrow_to_local_map = run_timed, narrow_counted
+    if tf is not None:
+        tf.landmark_theta_pass = theta_counted
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    report(reset=True)
+    snaps, init_ms, frame_ms, kf_ms, n_ok = [], [], [], [], 0
+    rss_start = host_rss_mb()
+    block = {"frame": [], "kf": [], "closures": 0, "narrow": 0}
+    t_start = time.perf_counter()
+    try:
+        for i, (img, dets) in enumerate(frames):
+            n_kf, tracking = len(m.keyframes), tr.state == 1
+            _sync_device(dev)
+            t0, c0 = time.perf_counter(), check_ms()
+            pose = slam.track_monocular(img, float(i), detections=dets)
+            _sync_device(dev)
+            dt = (time.perf_counter() - t0) * 1e3 - (check_ms() - c0)
+            n_ok += pose is not None
+            if not tracking:
+                init_ms.append(dt)
+            else:
+                kind = "kf" if len(m.keyframes) > n_kf else "frame"
+                (kf_ms if kind == "kf" else frame_ms).append(dt)
+                block[kind].append(dt)
+            if (i + 1) % every == 0:
+                snap = {
+                    "frame": i + 1,
+                    "frame_ms_median": float(np.median(block["frame"])) if block["frame"] else None,
+                    "kf_insert_ms_median": float(np.median(block["kf"])) if block["kf"] else None,
+                    "kf_insertions": len(block["kf"]),
+                    "keyframes": len(m.keyframes), "points": int(m.n_points),
+                    "texts": int(m.n_texts), "saturation_drops": dict(m.saturation_drops),
+                    "loops": len(lc.closed_loops),
+                    "closures": [(c["K"], round(c["ms"], 1), c["decomposed"])
+                                 for c in closures[block["closures"]:]],
+                    "narrowing_calls": narrow["calls"] - block["narrow"],
+                    "rss_mb": host_rss_mb(),
+                    "host_bytes_mb": {k: v / 2 ** 20 for k, v in m.host_bytes().items()},
+                    "device_mb": (torch.cuda.memory_allocated(dev) / 2 ** 20
+                                  if dev.type == "cuda" else None),
+                    "device_peak_mb": (torch.cuda.max_memory_allocated(dev) / 2 ** 20
+                                       if dev.type == "cuda" else None),
+                }
+                snaps.append(snap)
+                fmt = {k: (round(v, 3) if isinstance(v, float) else v) for k, v in snap.items()}
+                fmt["host_bytes_mb"] = {k: round(v, 1) for k, v in snap["host_bytes_mb"].items()}
+                log(f"[scale] {fmt}  [{card}]")
+                log(report(reset=True))  # the block's host time by phase
+                if census is not None:
+                    log(f"[scale] frame {i + 1} text planes: {census()}")
+                block = {"frame": [], "kf": [], "closures": len(closures),
+                         "narrow": narrow["calls"]}
+    finally:
+        lc.run, tr._narrow_to_local_map = run, narrow_fn
+        if tf is not None:
+            tf.landmark_theta_pass = theta_pass
+    wall = time.perf_counter() - t_start
+    traj = tr.trajectory
+    est = np.stack([p for _, p in traj])
+    ts = [t for t, _ in traj]
+    kfs = m.keyframes
+    return {
+        "frames": len(frame_ms) + len(kf_ms) + len(init_ms), "tracked": n_ok, "wall_s": wall,
+        "ate": torch_synth.ate_rmse(ts, est, gt),
+        "kf_ate": torch_synth.ate_rmse([kf.timestamp for kf in kfs],
+                                       np.stack([m.kf_pose[kf.kid] for kf in kfs]), gt),
+        "keyframes": len(kfs), "kf_pool_cap": slam.cfg.map.max_keyframes,
+        "points": int(m.n_points), "point_pool_cap": slam.cfg.map.max_points,
+        "texts": int(m.n_texts), "saturation_drops": dict(m.saturation_drops),
+        "loops": [list(x) for x in lc.closed_loops], "closures": closures,
+        "narrowing": narrow, "theta_passes": theta_calls[0],
+        "frame_ms_median": float(np.median(frame_ms)) if frame_ms else None,
+        "kf_insert_ms_median": float(np.median(kf_ms)) if kf_ms else None,
+        "frame_ms_median_by_block": [s["frame_ms_median"] for s in snaps],
+        "rss_start_mb": rss_start, "rss_mb": [s["rss_mb"] for s in snaps], "snapshots": snaps,
+        "trajectory_ts": ts, "trajectory": est,
+    }
+
+
+# phase 10: the long-sequence regime. (a) the native host routines on the
+# card's host; (b) tests/test_scale_rehearsal.py's fixture through the port
+# (run_long); (c) tests/test_long_regime.py's two fixtures
+LEV_LENGTHS = ((128, 12, 16), (256, 8, 10))  # (padded L, queries, targets)
+LONG_FRAMES = 200  # the rehearsal's N: test_scale_rehearsal.py's default
+LONG_DECOMPOSE_KFS = 16  # its solver.global_decompose_kfs
+LONG_EVERY = 50  # frames per snapshot (and per RSS reading, as the test takes them)
+# the JAX package's run of the same fixture on the CPU
+# (tests/rehearsal_reference.py --write-record): its loops and its closer's
+# runs, against which a port run that closes no loop is held
+REHEARSAL_REFERENCE = os.path.join("tests", "rehearsal_reference.json")
+# the amnesia run: tests/test_e2e_loop.py's amnesia at its fractions of the
+# run (from the second excursion, frame N/2, the tracker forgets the
+# landmarks hosted in the keyframes made before frame N/4, the first outward
+# leg), the same fixture stopped at LONG_AMNESIA_STOP, some frames past the
+# return to the start and the closure there (KF 23 -> 2 at about frame 110)
+LONG_AMNESIA = (LONG_FRAMES // 4, LONG_FRAMES // 2)
+LONG_AMNESIA_STOP = 5 * LONG_FRAMES // 8
+# phase 10(b-c) runs in a process of its own (LongSide) beside phases
+# 5-10(a), on the same card; it takes ~7 minutes
+LONG_SIDE_TIMEOUT_S = 900
+LONG_ATE_MAX = 0.06  # its online-trajectory ATE bar
+# its host-memory bar: the RSS at the end below 1.6 x the mid-run RSS + 500 MB
+LONG_RSS_FACTOR, LONG_RSS_SLACK_MB = 1.6, 500.0
+# tests/test_long_regime.py: (frames, world seed, point pool), scene-only
+NARROW_FIXTURE = (30, 4, 2048)
+CAP_FIXTURE = (20, 5, 1024)
+NARROW_MIN_CANDIDATES = 50
+NARROW_ATE_MAX = 0.02
+
+
+def _lev_words(rng, n: int, L: int):
+    """n strings: empty, ASCII, CJK and mixed, up to L codepoints, one of
+    exactly L."""
+    alpha = list("ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789-#") + list("咖啡店出口酒店東京駅")
+    out = ["", "EXIT", "咖啡店", "".join(rng.choice(alpha, L))]
+    while len(out) < n:
+        out.append("".join(rng.choice(alpha, int(rng.integers(1, L + 1)))))
+    return out[:n]
+
+
+def run_native(card: str, covis: dict):
+    """Phase 10(a): the native host routines (csrc/native.cpp, built with the
+    host C++ compiler) on the card's host. covis_product on phase 9(c)'s
+    incidences (the same generator draws) held bit-equal to the exact product
+    (float64 BLAS), to which 9(c) held the numpy int32 product, so the two
+    host products are equal; its milliseconds beside 9(c)'s numpy and device
+    times. levenshtein_batch exactly equal to the Python DP (its plain
+    version) at L = 128 and 256 with empty, ASCII and CJK strings."""
+    import numpy as np
+    from textslam_tpu_torch import native
+    from textslam_tpu_torch.ops import cuda_lib, levenshtein
+
+    t0 = time.perf_counter()
+    lib = cuda_lib.build("native")
+    print(f"10a built {os.path.basename(lib)} in {time.perf_counter() - t0:.2f} s "
+          f"({os.path.basename(cuda_lib.find_cxx())}, {os.cpu_count()} host cores)")
+    rng = np.random.default_rng(9)  # run_covis's draws
+    rows = []
+    for K, r9 in zip(COVIS_KS, covis["rows"]):
+        inc = rng.random((K, COVIS_POINTS)) < COVIS_DENSITY
+        rng.integers(0, 65, COVIS_POINTS)
+        f = inc.astype(np.float64)
+        want = f @ f.T
+        np.fill_diagonal(want, 0)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = native.covis_product(inc)
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(got.dtype == np.int32 and np.array_equal(got, want.astype(np.int32)),
+              f"10a: native covis_product K={K} differs from the exact product")
+        rows.append({"K": K, "points": COVIS_POINTS, "native_ms": float(np.median(times)),
+                     "numpy_ms": r9["host_ms"], "device_ms": r9["device_ms"]})
+        print(f"10a covis_product K={K} x {COVIS_POINTS}: native {rows[-1]['native_ms']:.3f} ms "
+              f"(median of 3; bit-equal), numpy int32 {r9['host_ms']:.3f} ms, "
+              f"{MESH_SHARDS}-shard device {r9['device_ms']:.3f} ms (9c)  [{card}]")
+    lev = []
+    for L, nq, nt in LEV_LENGTHS:
+        qa, qlen = levenshtein.encode(_lev_words(rng, nq, L), L)
+        ta, tlen = levenshtein.encode(_lev_words(rng, nt, L), L)
+        t0 = time.perf_counter()
+        got = native.levenshtein_batch(qa, qlen, ta, tlen)
+        t_native = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = native.levenshtein_batch_plain(qa, qlen, ta, tlen)
+        t_plain = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(got, want), f"10a: native levenshtein_batch L={L} differs from "
+                                         f"the Python DP")
+        lev.append({"L": L, "pairs": nq * nt, "native_ms": t_native, "plain_ms": t_plain})
+        print(f"10a levenshtein_batch L={L}, {nq} x {nt} strings: native {t_native:.3f} ms, "
+              f"Python DP {t_plain:.3f} ms, exactly equal  [{card}]")
+    return {"covis": rows, "levenshtein": lev}
+
+
+def _watch_closer(slam, runs: list):
+    """Record every loop-closer run past its gates on `slam`: the keyframe
+    count K, the keyframes M1/M2/M3-covisible with the current one, those left
+    eligible as candidates, and the candidates. Returns a function that
+    removes the watch."""
+    lc = slam.loop_closer
+    thresh_words, detect = lc._thresh_words, lc.detect
+
+    def thresh_spy(kid):
+        out = thresh_words(kid)
+        if out[2]:
+            m, K = lc.map, len(lc.map.keyframes)
+            covis = int(((m.M1[kid, :K] > 0) | (m.M2[kid, :K] > 0) | (m.M3[kid, :K] > 0)).sum())
+            runs.append({"kid": kid, "K": K, "covisible": covis, "eligible": K - 1 - covis,
+                         "candidates": None})
+        return out
+
+    def detect_spy(kid, min_words, connects=frozenset()):
+        out = detect(kid, min_words, connects)
+        runs[-1]["candidates"] = list(out)
+        return out
+
+    lc._thresh_words, lc.detect = thresh_spy, detect_spy
+
+    def unwatch():
+        lc._thresh_words, lc.detect = thresh_words, detect
+
+    return unwatch
+
+
+def run_long_regime(card: str):
+    """Phase 10(b): tests/test_scale_rehearsal.py's fixture through the port
+    on the card (run_long): LONG_FRAMES frames of the text world (seed 3, 3
+    boxes per plane) on the outback2 path, TextSLAMConfig() with the pools
+    derived from the sequence length and global_decompose_kfs 16. Its bars,
+    and the port's: every closure past 16 keyframes took the decomposed
+    landmark pass, every kernel call equal to its plain version, the
+    tracking / solver / Sim3 tensors on the GPU. A run that closes no loop
+    passes only as the JAX package's own result on this fixture
+    (REHEARSAL_REFERENCE): it closed none either, and in both packages the
+    covisibility exclusion left no keyframe eligible at any closer run.
+    Snapshots every 50 frames, with the text-plane census of phase 6
+    (printed, not held)."""
+    from textslam_tpu_torch.frontend import text
+    from textslam_tpu_torch.ops import matching, patch_sample
+    from textslam_tpu_torch.solver import ba, sim3_opt
+    from textslam_tpu_torch.system import TextSLAM
+
+    spec = world_spec("outback2", LONG_FRAMES, boxes_per_plane=3)
+    world, gt, _ = make_world(spec)
+    cfg = long_config(LONG_FRAMES, decompose_kfs=LONG_DECOMPOSE_KFS)
+    check(not cfg.no_text, "the default configuration runs text")
+    print(f"10b: {LONG_FRAMES} frames of outback2; derived pools: keyframes "
+          f"{cfg.map.max_keyframes}, points {cfg.map.max_points}, texts {cfg.map.max_texts}")
+    slam = TextSLAM(cfg, device="cuda")
+    devices = set()
+    watch = _watch(devices)
+    orig = (text.fused_frame_chain, text.fused_ba_schedule, ba.solve_ba,
+            sim3_opt.refine_sim3, sim3_opt.solve_pose_graph)
+    (text.fused_frame_chain, text.fused_ba_schedule, ba.solve_ba, sim3_opt.refine_sim3,
+     sim3_opt.solve_pose_graph) = (watch(f) for f in orig)
+    checks, restore_checks = _kernel_checks(matching, patch_sample, label="long run")
+    counters = {"hamming_matrix": matching.hamming_matrix,
+                "grouped_bilinear_stack": patch_sample.grouped_bilinear_stack}
+    for fn in counters.values():
+        fn.launches = 0
+    checks["on"] = True
+    closer_runs = []
+    unwatch = _watch_closer(slam, closer_runs)
+
+    def census():
+        n_good, cosines, failed = text_planes(slam, gt, world)
+        return f"GOOD {n_good}: {_planes_line(cosines)}; outside the text bars: {failed}"
+
+    try:
+        res = run_long(slam, frame_stream(spec), gt, LONG_EVERY, card,
+                       check_ms=lambda: CHECK_MS[0], census=census,
+                       log=lambda s: print(s, flush=True))
+    finally:
+        checks["on"] = False
+        restore_checks()
+        unwatch()
+        (text.fused_frame_chain, text.fused_ba_schedule, ba.solve_ba, sim3_opt.refine_sim3,
+         sim3_opt.solve_pose_graph) = orig
+    res.pop("trajectory_ts"), res.pop("trajectory")
+    res["launches"] = {k: fn.launches for k, fn in counters.items()}
+    res["calls_held"] = {k: v["calls"] for k, v in checks["stats"].items()}
+    res["max_abs_err"] = {k: v["max_abs_err"] for k, v in checks["stats"].items()}
+    res["tensor_devices"] = sorted(devices)
+    res["closer_runs"] = closer_runs
+    for name, st in sorted(checks["stats"].items()):
+        print(f"10b: {name} calls held against the plain version {st['calls']}, max abs err "
+              f"{st['max_abs_err']:.3g}")
+    closures = res["closures"]
+    print(f"10b: {res['tracked']}/{res['frames']} tracked, {res['keyframes']} KFs (cap "
+          f"{res['kf_pool_cap']}), {res['points']} points (cap {res['point_pool_cap']}), "
+          f"{res['texts']} texts, drops {res['saturation_drops']}, loops {res['loops']}, "
+          f"online ATE {res['ate']:.6f}, KF ATE {res['kf_ate']:.6f}, narrowing "
+          f"{res['narrowing']}; closures (K, ms, decomposed) "
+          f"{[(c['K'], round(c['ms'], 1), c['decomposed']) for c in closures]}; per-frame "
+          f"medians by {LONG_EVERY} frames {[round(x, 3) for x in res['frame_ms_median_by_block']]}"
+          f"; RSS MB {res['rss_start_mb']:.1f} before the first frame, then "
+          f"{[round(x, 1) for x in res['rss_mb']]}; launches {res['launches']}  [{card}]")
+    n = LONG_FRAMES
+    check(res["keyframes"] >= n // 8, f"10b: only {res['keyframes']} KFs over {n} frames")
+    check(res["keyframes"] < res["kf_pool_cap"], f"10b: {res['keyframes']} KFs reach the cap")
+    check(not any(res["saturation_drops"].values()), f"10b: pools saturated "
+                                                     f"{res['saturation_drops']}")
+    check(closer_runs, "10b: the loop closer never ran past its gates")
+    print(f"10b: {len(closer_runs)} closer runs past the gates, K = {closer_runs[0]['K']}.."
+          f"{closer_runs[-1]['K']}; keyframes eligible as candidates (not covisible with the "
+          f"current one): at most {max(r['eligible'] for r in closer_runs)}; candidates "
+          f"{sum(bool(r['candidates']) for r in closer_runs)} runs")
+    if not res["loops"]:
+        with open(REHEARSAL_REFERENCE) as f:
+            ref = json.load(f)
+        ref_runs = ref["closer_runs"]
+        check(ref["frames"] == n and not ref["loops"] and ref_runs
+              and not any(r["eligible"] for r in ref_runs + closer_runs),
+              f"10b: the out-and-back-twice sequence closed no loop, and that is not the JAX "
+              f"package's result on this fixture ({REHEARSAL_REFERENCE}: loops {ref['loops']}, "
+              f"at most {max((r['eligible'] for r in ref_runs), default=None)} eligible "
+              f"keyframes; the port: at most {max(r['eligible'] for r in closer_runs)})")
+        res["loop_miss_as_reference"] = True
+        print(f"10b: no loop closed, as in the JAX package on this fixture ({REHEARSAL_REFERENCE}:"
+              f" {ref['keyframes']} KFs, no loop, {len(ref_runs)} closer runs at K = "
+              f"{ref_runs[0]['K']}..{ref_runs[-1]['K']}, none with an eligible keyframe; objects "
+              f"observed by every keyframe {ref['texts_seen_by_every_kf']}): the text objects "
+              f"that every keyframe observes make every keyframe M2-covisible with every other, "
+              f"and the closer excludes covisible keyframes. The amnesia run must close one.")
+    check(res["ate"] < LONG_ATE_MAX, f"10b: online-trajectory ATE {res['ate']}")
+    rss = res["rss_mb"]
+    mid, end = rss[len(rss) // 2 - 1], rss[-1]
+    check(end < mid * LONG_RSS_FACTOR + LONG_RSS_SLACK_MB, f"10b: RSS grew {mid} -> {end} MB")
+    late = [c for c in closures if c["K"] > LONG_DECOMPOSE_KFS]
+    res["decomposed_closures"] = sum(c["decomposed"] for c in late)
+    check(all(c["decomposed"] for c in late),
+          f"10b: a closure past {LONG_DECOMPOSE_KFS} KFs skipped the decomposed pass {late}")
+    check(devices == {"cuda"}, f"10b: tracking / solver / Sim3 tensors on {sorted(devices)}")
+    for k in counters:
+        check(res["launches"][k] > 0, f"10b: {k} never launched")
+    check(sum(res["calls_held"].get(k, 0) for k in ("hamming_matrix", "hamming_matrix_min"))
+          == res["launches"]["hamming_matrix"]
+          and res["calls_held"].get("grouped_bilinear_stack", 0)
+          == res["launches"]["grouped_bilinear_stack"],
+          f"10b: calls held {res['calls_held']} != launches {res['launches']}")
+    print(f"10b: {len(closures)} closure(s), {res['decomposed_closures']} of {len(late)} past "
+          f"{LONG_DECOMPOSE_KFS} KFs through the decomposed pass; RSS mid {mid:.1f} MB, end "
+          f"{end:.1f} MB (bar {mid * LONG_RSS_FACTOR + LONG_RSS_SLACK_MB:.1f})  [{card}]")
+    return res
+
+
+def run_long_amnesia(card: str):
+    """Phase 10(b), the amnesia run: the rehearsal's fixture again, frames
+    0..LONG_AMNESIA_STOP - 1, with tests/test_e2e_loop.py's amnesia from
+    frame LONG_AMNESIA[1] on (the landmarks of the keyframes made before
+    frame LONG_AMNESIA[0] forgotten), so the second excursion maps the start
+    again and the closer has keyframes that are not covisible with the
+    current one. Bars: at least one loop closed, every closure past 16
+    keyframes through the decomposed pass, no saturation drop, tracking,
+    online-trajectory ATE < 0.06. The kernel calls are not held again."""
+    from textslam_tpu_torch.system import TextSLAM
+
+    spec = world_spec("outback2", LONG_FRAMES, boxes_per_plane=3)
+    _, gt, _ = make_world(spec)
+    slam = TextSLAM(long_config(LONG_FRAMES, decompose_kfs=LONG_DECOMPOSE_KFS), device="cuda")
+    slam.track_monocular = amnesia_track(slam, *LONG_AMNESIA)
+    print(f"10b amnesia: frames 0..{LONG_AMNESIA_STOP - 1}, the landmarks of the KFs made "
+          f"before frame {LONG_AMNESIA[0]} forgotten from frame {LONG_AMNESIA[1]} on")
+    res = run_long(slam, frame_stream(spec, LONG_AMNESIA_STOP), gt, LONG_EVERY // 2, card,
+                   log=lambda s: print(s, flush=True))
+    res.pop("trajectory_ts"), res.pop("trajectory")
+    closures = res["closures"]
+    late = [c for c in closures if c["K"] > LONG_DECOMPOSE_KFS]
+    res["decomposed_closures"] = sum(c["decomposed"] for c in late)
+    print(f"10b amnesia: {res['tracked']}/{res['frames']} tracked, {res['keyframes']} KFs, "
+          f"{res['points']} points, {res['texts']} texts, drops {res['saturation_drops']}, "
+          f"loops {res['loops']}, online ATE {res['ate']:.6f}, KF ATE {res['kf_ate']:.6f}; "
+          f"closures (K, ms, decomposed) "
+          f"{[(c['K'], round(c['ms'], 1), c['decomposed']) for c in closures]}; per-frame "
+          f"medians by {LONG_EVERY // 2} frames "
+          f"{[round(x, 3) for x in res['frame_ms_median_by_block']]}  [{card}]")
+    check(len(res["loops"]) >= 1, "10b amnesia: the amnesia run closed no loop")
+    check(all(c["decomposed"] for c in late),
+          f"10b amnesia: a closure past {LONG_DECOMPOSE_KFS} KFs skipped the decomposed pass")
+    check(not any(res["saturation_drops"].values()),
+          f"10b amnesia: pools saturated {res['saturation_drops']}")
+    check(res["tracked"] >= res["frames"] - 5,
+          f"10b amnesia: {res['tracked']} of {res['frames']} frames tracked")
+    check(res["ate"] < LONG_ATE_MAX, f"10b amnesia: online-trajectory ATE {res['ate']}")
+    return res
+
+
+class LongSide:
+    """Phase 10(b-c) in a process of its own, `chip_smoke.py --long-side
+    OUT`, on the same card beside phases 5-10(a): the rehearsal (its kernel
+    launches counted and its calls held in that process), the amnesia run,
+    then 10(c). It has a session of its own, so that stop() also stops its
+    render pools."""
+
+    def __init__(self):
+        import tempfile
+
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_long_")
+        self.log, self.out = (os.path.join(self.tmp, f) for f in ("long.log", "long.json"))
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--long-side", self.out],
+                stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+
+    def finish(self):
+        """Wait for it (at most LONG_SIDE_TIMEOUT_S from its start), print its
+        output and return (rehearsal, amnesia, narrowing); fails if it
+        failed or outlived its time."""
+        try:
+            rc = self.proc.wait(max(1.0, LONG_SIDE_TIMEOUT_S - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        self._kill()
+        with open(self.log) as f:
+            print(f.read(), end="", flush=True)
+        print(f"10b-c: the process of the long runs took {time.perf_counter() - self.t0:.1f} s "
+              f"(exit code {rc})")
+        check(rc is not None, f"10b-c: the long runs outlived {LONG_SIDE_TIMEOUT_S} s")
+        check(rc == 0, f"10b-c: the long runs failed (exit code {rc}; their output above)")
+        with open(self.out) as f:
+            res = json.load(f)
+        return res["rehearsal"], res["amnesia"], res["narrowing"]
+
+    def _kill(self):
+        """Stop every process of its session that is left."""
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+    def stop(self):
+        """_kill(), and its files removed."""
+        import shutil
+
+        self._kill()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def run_long_side(card: str, out_path: str):
+    """The process of LongSide (--long-side): the rehearsal, the amnesia
+    run, then phase 10(c); writes their results to out_path."""
+    res = {"rehearsal": run_long_regime(card), "amnesia": run_long_amnesia(card),
+           "narrowing": run_narrowing(card)}
+    with open(out_path, "w") as f:
+        json.dump(res, f, default=float)
+
+
+def run_narrowing(card: str):
+    """Phase 10(c): tests/test_long_regime.py's two fixtures at 640x480,
+    scene-only: the local-map narrowing past max_points // 2 of a 2,048-point
+    pool (it runs, leaves more than 50 candidates at every call, tracking
+    holds, KF ATE < 0.02), and a 1,024-point pool that triangulation fills
+    and never passes."""
+    import dataclasses
+    import numpy as np
+    import torch_synth
+    from textslam_tpu_torch import config
+    from textslam_tpu_torch.system import TextSLAM
+
+    res = {}
+    for name, (n, seed, cap) in (("narrowing", NARROW_FIXTURE), ("point_cap", CAP_FIXTURE)):
+        frames, gt = torch_synth.render_sequence(n, seed=seed, kind="lateral")
+        cfg = dataclasses.replace(config.TextSLAMConfig(no_text=True),
+                                  camera=_camera(torch_synth, config),
+                                  map=config.MapConfig(max_points=cap))
+        slam = TextSLAM(cfg, device="cuda")
+        tr, m = slam.tracker, slam.map
+        calls = []
+        narrow = tr._narrow_to_local_map
+
+        def spy(frame, pt_valid):
+            out = narrow(frame, pt_valid)
+            calls.append(int(out[: m.n_points].sum()))
+            return out
+
+        tr._narrow_to_local_map = spy
+        t0 = time.perf_counter()
+        for i, img in enumerate(frames):
+            slam.track_monocular(img, float(i))
+        kfs = m.keyframes
+        kf_ate = torch_synth.ate_rmse([kf.timestamp for kf in kfs],
+                                      np.stack([m.kf_pose[kf.kid] for kf in kfs]), gt)
+        r = {"frames": n, "max_points": cap, "points": int(m.n_points), "keyframes": len(kfs),
+             "narrowing_calls": len(calls), "min_candidates": min(calls) if calls else None,
+             "kf_ate": kf_ate, "tracking": tr.state == 1,
+             "saturation_drops": dict(m.saturation_drops), "s": time.perf_counter() - t0}
+        res[name] = r
+        print(f"10c {name}: {n} frames, pool {cap}: {r['points']} points, {len(kfs)} KFs, "
+              f"narrowing calls {len(calls)} (fewest candidates {r['min_candidates']}), KF ATE "
+              f"{kf_ate:.6f}, tracking {r['tracking']}, drops {r['saturation_drops']} "
+              f"({r['s']:.1f} s)  [{card}]")
+        check(r["tracking"], f"10c {name}: tracking lost")
+        if name == "narrowing":
+            check(m.n_points > cap // 2, f"10c: the fixture never crossed the cap: {m.n_points}")
+            check(calls, "10c: the narrowing never ran")
+            check(min(calls, default=0) > NARROW_MIN_CANDIDATES,
+                  f"10c: narrowing left {min(calls, default=0)} candidates")
+            check(kf_ate < NARROW_ATE_MAX, f"10c: narrowed-map KF ATE {kf_ate}")
+        else:
+            check(m.n_points <= cap, f"10c: {m.n_points} points in a pool of {cap}")
+    return res
+
+
 def run_text_seeds(seeds, card: str):
     """The text run again under other RANSAC seeds (TextSLAMConfig.seed):
     tracking, keyframe ATE and the text-plane bars of every run; fails
@@ -1967,6 +2684,27 @@ def run_text_seeds(seeds, card: str):
     check(not misses, f"text seeds: {misses}")
 
 
+def _long_summary(native: dict, longrun: dict, amnesia: dict, narrowing: dict) -> dict:
+    """Phase 10's numbers for its JSON line."""
+    keys = ("frames", "tracked", "keyframes", "kf_pool_cap", "points", "point_pool_cap", "texts",
+            "saturation_drops", "loops", "ate", "kf_ate", "frame_ms_median",
+            "kf_insert_ms_median", "frame_ms_median_by_block", "rss_start_mb", "rss_mb",
+            "narrowing", "decomposed_closures", "wall_s")
+    runs = longrun["closer_runs"]
+
+    def closures(res):
+        return [{k: c[k] for k in ("K", "ms", "decomposed", "loop")} for c in res["closures"]]
+
+    return {"native": native,
+            "rehearsal": {**{k: longrun[k] for k in keys},
+                          "loop_miss_as_reference": longrun.get("loop_miss_as_reference", False),
+                          "closer_runs": len(runs),
+                          "closer_max_eligible": max(r["eligible"] for r in runs)},
+            "closures": closures(longrun), "snapshots": longrun["snapshots"],
+            "amnesia_run": {**{k: amnesia[k] for k in keys}, "closures": closures(amnesia)},
+            "narrowing": narrowing}
+
+
 def _seeds(text: str):
     """'1,2,5-8' -> [1, 2, 5, 6, 7, 8]."""
     out = []
@@ -1984,6 +2722,10 @@ def main() -> int:
     ap.add_argument("--seed-study", metavar="SEEDS",
                     help="only run the text pipeline under these RANSAC seeds (e.g. 0-15) and "
                          "hold each run to the text bars")
+    ap.add_argument("--long-only", action="store_true",
+                    help="only run phase 9(c) and phase 10, the long regime (prints no result "
+                         "line)")
+    ap.add_argument("--long-side", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU", file=sys.stderr)
@@ -1996,6 +2738,9 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if args.long_side:
+        run_long_side(card, args.long_side)
+        return 0
     if args.seed_study:
         run_text_seeds(_seeds(args.seed_study), card)
         return 0
@@ -2006,6 +2751,15 @@ def main() -> int:
         libs = list(ex.map(cuda_lib.build, names))
     print(f"built {[os.path.relpath(p, root) for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    if args.long_only:
+        side = LongSide()
+        try:
+            native = run_native(card, run_covis(card))
+            longrun, amnesia, narrowing = side.finish()
+        finally:
+            side.stop()
+        print(json.dumps({"long_regime": _long_summary(native, longrun, amnesia, narrowing)}))
+        return 0
     for lib in libs:  # ptxas -v: registers, shared memory and spills of each kernel
         with open(lib + ".log") as f:
             print("\n".join(f"  {os.path.basename(lib)}: {line.strip()}" for line in f
@@ -2019,34 +2773,44 @@ def main() -> int:
           f"POPC instructions in the SASS of both instantiations (cuobjdump)")
     check(n_bmma > 0, "the Hamming kernel has no BMMA instruction")
 
-    hamming_rows = compare_hamming(matching, card)
-    sampler_rows = compare_sampler(patch_sample, card)
-    scene = run_scene(card)
-    textrun = run_text(card)
-    looprun = run_loop(card)
-    clirun = run_cli(card)
-    # phase 9: scale-out
-    sharded = run_sharded_ba(card)
-    meshrun = run_mesh_text(card, textrun)
-    covis = run_covis(card)
-    twoproc = run_two_process(card)
+    hamming_rows = timed("3 hamming", compare_hamming, matching, card)
+    sampler_rows = timed("4 sampler", compare_sampler, patch_sample, card)
+    # phase 10(b-c) from here on in a process of its own, beside phases 5-10(a)
+    side = LongSide()
+    try:
+        scene = timed("5 scene", run_scene, card)
+        textrun = timed("6 text", run_text, card)
+        looprun = timed("7 loop", run_loop, card)
+        clirun = timed("8 cli", run_cli, card)
+        # phase 9: scale-out
+        sharded = timed("9a sharded BA", run_sharded_ba, card)
+        meshrun = timed("9b mesh text", run_mesh_text, card, textrun)
+        covis = timed("9c covisibility", run_covis, card)
+        twoproc = timed("9d two processes", run_two_process, card)
+        # phase 10: the long regime
+        native = timed("10a native", run_native, card, covis)
+        longrun, amnesia, narrowing = timed("10b-c (waiting for their process)", side.finish)
+    finally:
+        side.stop()
+    print(f"[time] phases 1-10: {time.perf_counter() - T_START:.1f} s", flush=True)
 
     ham = hamming_rows[0]  # [4096, 1000]: every tracked frame below 4096 points
     # loop-time calls held against the plain version (phase 7)
     lchk = looprun["loop_kernel_checks"]
     ham_loop = [lchk[k] for k in ("hamming_matrix", "hamming_matrix_min") if k in lchk]
     smp_loop = lchk["grouped_bilinear_stack"]
-    cli_err, mesh_err = clirun["max_abs_err"], meshrun["max_abs_err"]
+    cli_err, mesh_err, long_err = (r["max_abs_err"] for r in (clirun, meshrun, longrun))
     ham = dict(ham, max_abs_err=max([r["max_abs_err"] for r in hamming_rows]
                                     + [v["max_abs_err"] for v in ham_loop]
-                                    + [e.get(k, 0.0) for e in (cli_err, mesh_err)
+                                    + [e.get(k, 0.0) for e in (cli_err, mesh_err, long_err)
                                        for k in ("hamming_matrix", "hamming_matrix_min")]))
     # level 0 of one frame's pyramid, G = 16: most of the path's launches
     smp = next(r for r in sampler_rows if r["case"] == "frame level view" and r["level"] == 0
                and r["groups"] == 16)
     smp = dict(smp, max_abs_err=max([r["max_abs_err"] for r in sampler_rows]
                                     + [smp_loop["max_abs_err"], cli_err["grouped_bilinear_stack"],
-                                       mesh_err["grouped_bilinear_stack"]]))
+                                       mesh_err["grouped_bilinear_stack"],
+                                       long_err["grouped_bilinear_stack"]]))
     path = [r for r in sampler_rows if r["on_path"]]
     print(f"sampler wrapper / grid_sample on the path: G=16 level 0 "
           f"{smp['ms'] / smp['library_ms']:.2f}, worst "
@@ -2072,6 +2836,9 @@ def main() -> int:
                                         for k in ("hamming_matrix", "hamming_matrix_min")),
          "launches_mesh_run": meshrun["launches"]["hamming_matrix"],
          "mesh_calls_held_to_plain": sum(meshrun["calls_held"].get(k, 0)
+                                         for k in ("hamming_matrix", "hamming_matrix_min")),
+         "launches_long_run": longrun["launches"]["hamming_matrix"],
+         "long_calls_held_to_plain": sum(longrun["calls_held"].get(k, 0)
                                          for k in ("hamming_matrix", "hamming_matrix_min"))},
         {"name": "grouped_bilinear_stack", "route": "cuda",
          "source": "textslam_tpu_torch/csrc/patch_sample.cu",
@@ -2086,7 +2853,9 @@ def main() -> int:
          "launches_cli_run": clirun["launches"]["grouped_bilinear_stack"],
          "cli_calls_held_to_plain": clirun["calls_held"]["grouped_bilinear_stack"],
          "launches_mesh_run": meshrun["launches"]["grouped_bilinear_stack"],
-         "mesh_calls_held_to_plain": meshrun["calls_held"]["grouped_bilinear_stack"]},
+         "mesh_calls_held_to_plain": meshrun["calls_held"]["grouped_bilinear_stack"],
+         "launches_long_run": longrun["launches"]["grouped_bilinear_stack"],
+         "long_calls_held_to_plain": longrun["calls_held"]["grouped_bilinear_stack"]},
     ]
     print(json.dumps({"scale_out": {
         "sharded_ba_ms": sharded["ms"], "sharded_ba_costs": [sharded["cost_solve_ba"],
@@ -2095,6 +2864,7 @@ def main() -> int:
                                                "solves", "kf_pose_diff_vs_phase6",
                                                "four_shards")},
         "covis": covis, "two_process": twoproc}}))
+    print(json.dumps({"long_regime": _long_summary(native, longrun, amnesia, narrowing)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

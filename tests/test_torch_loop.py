@@ -624,7 +624,7 @@ def test_imports_load_no_jax():
     cv2 or PIL (the GPU machine has none of them)."""
     code = ("import sys; import textslam_tpu_torch.system, textslam_tpu_torch.loop.closing, "
             "textslam_tpu_torch.cli, textslam_tpu_torch.io.dataset, textslam_tpu_torch.io.png, "
-            "textslam_tpu_torch.mapper.checkpoint; "
+            "textslam_tpu_torch.mapper.checkpoint, textslam_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'textslam_tpu', 'cv2', 'PIL')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -117,3 +117,120 @@ def test_render_distorted_matches_cli_e2e(cli_e2e, frame):
     ours = torch_synth.render_distorted(torch_synth.TextWorld(seed=1), pose, rays)
     np.testing.assert_allclose(ours, cli_e2e.render_distorted(synth.TextWorld(seed=1), pose),
                                atol=0.05)
+
+
+# the long-run fixtures: outback2, the ring circuit, the degradation
+
+@pytest.mark.parametrize("kind,n", [("outback2", 200), ("outback2", 37), ("ring", 400),
+                                    ("ring", 1000)])
+def test_long_camera_paths_match(kind, n):
+    np.testing.assert_allclose(torch_synth.camera_path(n, kind), synth.camera_path(n, kind),
+                               atol=1e-6)
+
+
+def test_ring_constants_match():
+    for name in ("RING_SEGMENTS", "RING_SPACING", "RING_RADIUS", "RING_LAPS"):
+        assert getattr(torch_synth, name) == getattr(synth, name), name
+
+
+@pytest.fixture(scope="module")
+def ring_worlds():
+    return synth.ring_world(seed=3), torch_synth.ring_world(seed=3)
+
+
+def test_ring_world_boxes_match(ring_worlds):
+    wj, wt = ring_worlds
+    assert len(wt.planes) == len(wj.planes) == torch_synth.RING_SEGMENTS
+    for pj, pt in zip(wj.planes, wt.planes):
+        assert pj[0] == pt[0] and pj[1] == pt[1]
+        np.testing.assert_array_equal(pt[4], pj[4])
+    assert len(wt.boxes) == len(wj.boxes) >= 24
+    for (pj, qj, sj), (pt, qt, st) in zip(wj.boxes, wt.boxes):
+        assert (pt, st) == (pj, sj)
+        np.testing.assert_array_equal(qt, qj)
+
+
+@pytest.mark.parametrize("frame", [0, 170, 399])
+def test_ring_world_render_and_detections(ring_worlds, frame):
+    """The same tolerances as the text world's: 0.05 gray on every pixel,
+    detections in the same order with corners to 1e-3 px."""
+    wj, wt = ring_worlds
+    pose = synth.camera_path(400, "ring")[frame]
+    np.testing.assert_allclose(wt.render(pose), wj.render(pose), atol=0.05)
+    dj, dt = wj.detections(pose), wt.detections(pose)
+    assert len(dt) == len(dj) >= 1
+    for a, b in zip(dt, dj):
+        assert (a.text, a.score, a.lang) == (b.text, b.score, b.lang)
+        np.testing.assert_allclose(a.quad, b.quad, atol=1e-3)
+
+
+def test_degrade_schedule_exact():
+    for n in (1, 50, 200, 1000):
+        np.testing.assert_array_equal(torch_synth.degrade_schedule(n), synth.degrade_schedule(n))
+    np.testing.assert_array_equal(torch_synth.degrade_schedule(300, 0.1, 0.5, 0.1),
+                                  synth.degrade_schedule(300, 0.1, 0.5, 0.1))
+
+
+@pytest.mark.parametrize("g", [0.0, 0.02, 0.1, 0.45, 1.0])
+def test_degrade_frame_matches_cv2(g):
+    """The blur in numpy against cv2.GaussianBlur (kernel sizes 1 to 9):
+    mean absolute error < 0.5 gray on the same image and noise draws."""
+    img = torch_synth.TextWorld(seed=3, boxes_per_plane=3).render(synth.camera_path(20)[7])
+    a = synth.degrade_frame(img, np.random.default_rng(5), g)
+    b = torch_synth.degrade_frame(img, np.random.default_rng(5), g)
+    assert b.dtype == np.float32 and b.shape == img.shape
+    assert np.abs(a - b).mean() < 0.5
+
+
+class TestRingWorldGeometry:
+    """tests/test_ring_world.py's geometry pins, on the port's fixture."""
+
+    @pytest.fixture(scope="class")
+    def ring(self):
+        return torch_synth.ring_world(seed=3), torch_synth.camera_path(400, "ring")
+
+    @staticmethod
+    def _strings(world, pose):
+        return {d.text for d in world.detections(pose)}
+
+    def test_start_walls_leave_view_mid_lap(self, ring):
+        world, poses = ring
+        start = self._strings(world, poses[0])
+        assert len(start) >= 6, start
+        mid = set()
+        for i in range(140, 210):
+            mid |= self._strings(world, poses[i])
+        assert start.isdisjoint(mid), start & mid
+
+    def test_revisit_sees_start_walls_again(self, ring):
+        world, poses = ring
+        assert len(self._strings(world, poses[0]) & self._strings(world, poses[-1])) >= 4
+
+    def test_every_frame_has_texture_and_text(self, ring):
+        world, poses = ring
+        for i in range(0, 400, 10):
+            assert (world.render(poses[i]) > 0).mean() > 0.5, f"frame {i} mostly empty"
+            assert world.detections(poses[i]), f"frame {i}: no text"
+
+    def test_no_world_point_spans_both_eras(self, ring):
+        from textslam_tpu_torch.geometry import se3_np
+
+        world, poses = ring
+
+        def visible(points_w, pose):
+            pc = points_w @ se3_np.qto_matrix(pose[:4]).T + pose[4:]
+            z = np.maximum(pc[:, 2], 0.1)
+            u = synth.FX * pc[:, 0] / z + synth.CX
+            v = synth.FY * pc[:, 1] / z + synth.CY
+            return (pc[:, 2] > 0.1) & (u >= 0) & (u < synth.W) & (v >= 0) & (v < synth.H)
+
+        pts = []
+        for z0, s, tex, mask, off in world.planes:
+            half = tex.shape[0] / (2 * s)
+            gx, gy = np.meshgrid(np.linspace(-half, half, 40) + off[0],
+                                 np.linspace(-half, half, 40) + off[1])
+            pts.append(np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, z0)], -1))
+        pts = np.concatenate(pts)
+        start = visible(pts, poses[0])
+        for i in range(140, 210, 10):
+            assert not (start & visible(pts, poses[i])).any(), f"frame {i}"

@@ -8,7 +8,9 @@ map of each destination pixel, bilinear (INTER_LINEAR) or rounded to the
 nearest pixel (INTER_NEAREST), zero outside the texture.
 tests/test_torch_synth.py holds the two renderers against each other.
 
-Also: the text world (`TextWorld`, `render_text_sequence`, detections
+Also: the long-run fixtures of synth.py (the `outback2` and `ring` paths,
+`ring_world`, `degrade_frame` with its blur in numpy, `degrade_schedule`);
+the text world (`TextWorld`, `render_text_sequence`, detections
 projected from the ground-truth boxes, `plane_theta_in_cam`) and
 `ate_rmse`, the Sim3-aligned ATE of synth.ate_rmse (Horn alignment), in
 numpy; for datasets on disk, `render_distorted` (the image a camera with
@@ -211,6 +213,67 @@ class TextWorld(PlaneWorld):
         return dets
 
 
+RING_SEGMENTS = 12          # wall segments around the circuit
+RING_SPACING = 1.0          # metres between segment centres along the ring
+RING_RADIUS = RING_SEGMENTS * RING_SPACING / (2 * np.pi)
+RING_LAPS = 1.15            # loop-closure fixtures revisit the first ~15%
+
+
+def _gauss_blur(img: np.ndarray, ksize: int, sigma: float) -> np.ndarray:
+    """cv2.GaussianBlur(img, (ksize, ksize), sigma) on float32: separable
+    kernel (computed in float64, stored as float32), BORDER_REFLECT_101."""
+    r = ksize // 2
+    x = np.arange(-r, r + 1, dtype=np.float64)
+    k = np.exp(-(x * x) / (2 * sigma * sigma))
+    k = (k / k.sum()).astype(np.float32)
+    p = np.pad(np.asarray(img, np.float32), r, mode="reflect")
+    h, w = img.shape
+    rows = sum(p[:, i:i + w] * k[i] for i in range(ksize))
+    return sum(rows[i:i + h] * k[i] for i in range(ksize)).astype(np.float32)
+
+
+def degrade_frame(img, rng, g, darken=0.70, noise=13.0, blur=1.7):
+    """Photometric degradation at strength g in [0, 1] (synth.degrade_frame:
+    the same darkening, Gaussian blur and sensor noise from the same RNG
+    call): an underexposed, motion-blurred stretch such as a tunnel, for the
+    engineered-drift loop fixtures."""
+    if g <= 0:
+        return img
+    out = img * (1.0 - darken * g)
+    s = float(blur * g)
+    if s > 0.05:
+        out = _gauss_blur(out, int(2 * round(2 * s) + 1), s)
+    out = out + rng.normal(0.0, noise * g, out.shape)
+    return np.clip(out, 0, 255).astype(np.float32)
+
+
+def degrade_schedule(n_frames, f0=0.21, f1=0.74, ramp=0.05):
+    """Per-frame degradation strength: 0 outside [f0, f1] (fractions of the
+    sequence), cosine-ramped over `ramp` at both edges (synth.degrade_schedule)."""
+    s = np.linspace(0.0, 1.0, n_frames)
+    up = np.clip((s - f0) / ramp, 0.0, 1.0)
+    down = np.clip((f1 - s) / ramp, 0.0, 1.0)
+    return (0.5 - 0.5 * np.cos(np.pi * np.minimum(up, down))).astype(np.float32)
+
+
+def ring_world(seed=0, n_segments=RING_SEGMENTS, boxes_per_plane=3,
+               box_px=((140, 220), (70, 110))):
+    """A circuit of wall segments tiled around a ring in the x-y plane
+    (synth.ring_world): each segment is visible only from a ~+-2 m arc of
+    the `ring` path, so the covisibility graph breaks by mid-lap and the
+    second lap maps the start walls again, the precondition of a semantic
+    loop closure."""
+    R = n_segments * RING_SPACING / (2 * np.pi)
+    planes = []
+    for i in range(n_segments):
+        phi = 2 * np.pi * i / n_segments
+        x, y = R * np.sin(phi), R * (1 - np.cos(phi))
+        depth = 1.8 if i % 2 == 0 else 2.6
+        # 12.5 -> 500 px/m: each 1024-px texture spans 2.05 m
+        planes.append((depth, 12.5, None, (x, y)))
+    return TextWorld(seed=seed, planes=planes, boxes_per_plane=boxes_per_plane, box_px=box_px)
+
+
 def _qexp(w: np.ndarray) -> np.ndarray:
     w = np.asarray(w, np.float32)
     sq = np.float32((w * w).sum())
@@ -221,8 +284,8 @@ def _qexp(w: np.ndarray) -> np.ndarray:
 
 
 def camera_path(n_frames: int, kind="lateral"):
-    """Ground-truth Tcw poses [N, 7] (the `lateral`, `forward` and
-    `outback` paths of synth.camera_path)."""
+    """Ground-truth Tcw poses [N, 7] (the `lateral`, `forward`, `outback`,
+    `outback2` and `ring` paths of synth.camera_path)."""
     poses = []
     for i in range(n_frames):
         s = i / max(n_frames - 1, 1)
@@ -237,6 +300,17 @@ def camera_path(n_frames: int, kind="lateral"):
             u = 2 * s if s <= 0.5 else 2 * (1 - s)
             t_wc = np.array([1.0 * u, 0.05 * np.sin(np.pi * u), 0.15 * u])
             w = np.array([0.0, -0.2 * u, 0.0])
+        elif kind == "outback2":
+            # two out-and-back excursions (the multi-loop fixture)
+            v = 2 * s % 1.0 if s < 1.0 else 1.0
+            u = 2 * v if v <= 0.5 else 2 * (1 - v)
+            t_wc = np.array([1.0 * u, 0.05 * np.sin(np.pi * u), 0.15 * u])
+            w = np.array([0.0, -0.2 * u, 0.0])
+        elif kind == "ring":
+            # one and a bit laps around ring_world's circuit, translation only
+            phi = 2 * np.pi * RING_LAPS * s
+            t_wc = np.array([RING_RADIUS * np.sin(phi), RING_RADIUS * (1 - np.cos(phi)), 0.0])
+            w = np.zeros(3)
         else:
             raise ValueError(kind)
         Twc = np.concatenate([_qexp(w), t_wc]).astype(np.float32)

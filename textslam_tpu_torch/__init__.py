@@ -13,7 +13,9 @@ and refinement, landmark fusion, the Sim3 pose graph, the global and
 landmark-only bundle adjustments), checkpoint/resume in the JAX package's
 file format, the dataset reader and the command-line entry point
 (`python -m textslam_tpu_torch.cli`), and scale-out over a device mesh
-(`parallel/`: the sharded bundle adjustment, covisibility and extraction).
+(`parallel/`: the sharded bundle adjustment, covisibility and extraction),
+and the native host routines (`native.py`: threaded C++ Levenshtein and
+covisibility products).
 
 Plain tensor code is PyTorch; every Pallas kernel of the JAX package becomes
 a hand-written Hopper kernel under `csrc/`. The package never imports jax,

@@ -4,7 +4,9 @@ textslam_tpu/loop/closing.py.
 
 - detect: for every text string the current keyframe observes, batched
   Levenshtein scores against all map strings (ops.levenshtein, one
-  wavefront for the whole [Q, T] pair matrix); a match is kept at
+  wavefront for the whole [Q, T] pair matrix; strings longer than the
+  device cap go through the native host routine native.levenshtein_batch);
+  a match is kept at
   >= max(2/3 of the query's best, the minimum score); keyframes vote with
   covisibility exclusion through M1/M2/M3; the top candidates by votes.
 - compute_sim3: 3D-3D correspondences from descriptor matches between the
@@ -32,6 +34,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import native
 from ..config import TextSLAMConfig
 from ..frontend.frame import check_device, desc_to_dev
 from ..frontend.tracking import _bool, _f32, _pad, _pad_pose, pad_tier, search_from_3d
@@ -174,7 +177,7 @@ class LoopCloser:
             d = levenshtein.levenshtein_matrix(torch.as_tensor(qa, device=dev), qlen_t,
                                                torch.as_tensor(ta, device=dev), tlen_t)
         else:
-            d = torch.as_tensor(levenshtein.levenshtein_batch_host(qa, qlen, ta, tlen), device=dev)
+            d = torch.as_tensor(native.levenshtein_batch(qa, qlen, ta, tlen), device=dev)
         scores = levenshtein.similarity_scores(d, qlen_t, tlen_t).cpu().numpy()
 
         all_arr = np.asarray(all_tids)

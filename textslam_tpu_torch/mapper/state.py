@@ -14,10 +14,10 @@ a small LRU (kf_pyr_dev).
 
 Loop closing fuses duplicated landmarks (replace_point / replace_text) and
 records loop edges on both keyframes. The covisibility rebuilds take the
-numpy product, or the keyframe-axis-sharded device product
+threaded host product of the native module (native.covis_product; the
+weighted M3 product in numpy), or the keyframe-axis-sharded device product
 (parallel.covis_sharded) when ParallelConfig.covis_devices > 1 and the map
-holds at least covis_min_kfs keyframes. Not here yet: the JAX package's
-native (C++) host product.
+holds at least covis_min_kfs keyframes.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..config import TextSLAMConfig
 
 # text object states
@@ -148,6 +149,24 @@ class SlamMap:
         from ..parallel.mesh import make_mesh
 
         self._covis_mesh = make_mesh(cfg.parallel.covis_devices, device)
+
+    def host_bytes(self) -> Dict[str, int]:
+        """Designed host-memory footprint by owner: the fixed numpy pools
+        (`pools`), the keyframes' host pyramid mirrors (`kf_pyramids`) and
+        their other numpy records (`kf_other`). A long run subtracts it from
+        the process RSS to tell the map's bounded growth from the runtime's.
+        The device copies (pyr_dev, the LRU) are not host memory and are
+        not counted, as in the JAX package."""
+        pools = sum(v.nbytes for v in vars(self).values() if isinstance(v, np.ndarray))
+        kf_pyr = kf_other = 0
+        for kf in self.keyframes:
+            for name, v in vars(kf).items():
+                if isinstance(v, np.ndarray):
+                    if name == "pyr_data":
+                        kf_pyr += v.nbytes
+                    else:
+                        kf_other += v.nbytes
+        return {"pools": pools, "kf_pyramids": kf_pyr, "kf_other": kf_other}
 
     # ---------------- pool saturation ----------------
 
@@ -400,13 +419,16 @@ class SlamMap:
         """inc @ inc.T (or (inc * w) @ inc.T) with a zero diagonal, int32:
         on the mesh when one is set and the map holds at least covis_min_kfs
         keyframes (the JAX package's crossover on a TPU; chip_smoke.py phase
-        9 measures the card's), else numpy on the host."""
+        9 measures the card's), else on the host: the native threaded
+        product, or numpy for the weighted one."""
         if self._covis_mesh is not None and inc.shape[0] >= self.cfg.parallel.covis_min_kfs:
             from ..parallel import covis_sharded
 
             return covis_sharded.covis_product(inc, self._covis_mesh, w=w)
+        if w is None:
+            return native.covis_product(inc)
         inc_i = inc.astype(np.int32)
-        M = (inc_i if w is None else inc_i * np.asarray(w, np.int32)[None, :]) @ inc_i.T
+        M = (inc_i * np.asarray(w, np.int32)[None, :]) @ inc_i.T
         np.fill_diagonal(M, 0)
         return M
 

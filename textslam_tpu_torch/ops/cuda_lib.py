@@ -29,7 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-CXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+CXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-pthread"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every C entry point of csrc/, bound once at load: (source, function) ->
@@ -43,6 +43,10 @@ SIGNATURES: Dict[Tuple[str, str], tuple] = {
     ("patch_sample", "patch_sample_launch"): (_P,) * 5 + (ctypes.c_char_p, _P),
     # host: raw rows (filter byte + bytes), out, rows, stride, bytes per pixel
     ("png_unfilter", "png_unfilter"): (_P, _P, _I, _I, _I),
+    # host: a, alen, b, blen, Q, T, L, out
+    ("native", "levenshtein_batch"): (_P,) * 4 + (ctypes.c_int64,) * 3 + (_P,),
+    # host: inc (uint8), K, P, out
+    ("native", "covis_product"): (_P, ctypes.c_int64, ctypes.c_int64, _P),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

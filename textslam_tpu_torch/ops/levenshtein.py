@@ -6,7 +6,9 @@ all (query, map word) pairs at once: each row of the DP updates the whole
 [Q, T, L+1] frontier, and the left-neighbour dependency within a row is a
 prefix minimum (torch.cummin on the last axis, where the JAX version takes
 lax.associative_scan(jnp.minimum)). Strings longer than the device tier cap
-go through `levenshtein_batch_host`, the arbitrary-length host DP.
+go through the native host routine `native.levenshtein_batch` (threaded
+C++, any length), whose plain version is `native.levenshtein_batch_plain`,
+the JAX package's Python DP.
 
 Score convention: score = (maxlen - dist) / maxlen.
 """
@@ -61,27 +63,6 @@ def levenshtein_matrix(a: torch.Tensor, alen: torch.Tensor, b: torch.Tensor,
         dist = torch.where(last, new.gather(-1, col_idx)[..., 0], dist)
         prev = new
     return dist
-
-
-def levenshtein_batch_host(a: np.ndarray, alen: np.ndarray, b: np.ndarray,
-                           blen: np.ndarray) -> np.ndarray:
-    """All-pairs edit distance on the host, for any padded length: a [Q, L],
-    b [T, L] int32 codepoints -> [Q, T] int32 (the JAX package's pure-Python
-    DP of its native host module)."""
-    Q, T = a.shape[0], b.shape[0]
-    out = np.zeros((Q, T), np.int32)
-    for q in range(Q):
-        aw = a[q, : alen[q]]
-        for t in range(T):
-            bw = b[t, : blen[t]]
-            dp = list(range(len(bw) + 1))
-            for i, ca in enumerate(aw):
-                new = [i + 1]
-                for j, cb in enumerate(bw):
-                    new.append(min(dp[j + 1] + 1, new[-1] + 1, dp[j] + (ca != cb)))
-                dp = new
-            out[q, t] = dp[-1]
-    return out
 
 
 def similarity_scores(dist: torch.Tensor, alen: torch.Tensor, blen: torch.Tensor) -> torch.Tensor:
