@@ -7,8 +7,9 @@ Phases, each of which must pass (any failure exits non-zero):
 1. require a CUDA device; print the card's name and power limit
    (nvidia-smi);
 2. build every kernel of the port from this checkout, one nvcc per source,
-   all started together (csrc/hamming.cu, csrc/patch_sample.cu), and print
-   the build time and ptxas's registers and spills;
+   all started together (csrc/hamming.cu, csrc/patch_sample.cu) with the
+   reader's host routines (csrc/jpeg_decode.cpp, csrc/png_unfilter.cpp, g++),
+   and print the build time and ptxas's registers and spills;
 3. hold the Hamming kernel against its plain PyTorch version on random
    descriptors at the main path's shapes and three ragged ones, without and
    with the alternate row set (one launch computes the minimum), with
@@ -67,8 +68,14 @@ Phases, each of which must pass (any failure exits non-zero):
    temporary directory in the reference's dataset layout (tests/torch_synth
    write_dataset: frames stored distorted as PNG with all five row filters,
    OCR files with a CJK and a "#" probe line on frame 5, Imlist / Imshort,
-   one yaml per experiment and scene-only ones); checks that every frame
-   decodes to the image written, that the detections read back as written,
+   one yaml per experiment and scene-only ones) and its JPEG twin (the same
+   frames in color, torch_synth.tint_bgr, as baseline 4:2:0 JPEG,
+   torch_synth.encode_jpeg); checks that every
+   committed fixture of the reader (tests/jpeg/, tests/png/: baseline and
+   progressive JPEG, palette, sub-byte and interlaced PNG) decodes to the
+   digest of cv2's decode recorded beside it, that every PNG frame decodes
+   to the image written and every JPEG frame near it, that the detections
+   read back as written,
    that the reader's undistorted frame is a CUDA tensor equal within 1e-4
    to the same reader's on the CPU and within tests/test_cli_e2e.py's bar
    of the ideal render, and that a BGR frame decodes exactly and converts
@@ -76,11 +83,12 @@ Phases, each of which must pass (any failure exits non-zero):
    this process on the card: experiment 0 over all frames with
    --checkpoint-every 8 (every output written, at least 3 keyframes,
    keyframe ATE < 0.05, both kernels launched and every call held to its
-   plain version as in phase 7), the same run again with the checks off
-   (its per-frame medians of read + decode, undistortion and tracking are
-   the ones printed), a scene-only run split at frame 12 and resumed (the
+   plain version as in phase 7), the same run again on the JPEG twin with
+   the checks off (the same bars; its launches, and its per-frame medians
+   of read + decode, undistortion and tracking, are printed, with the PNG
+   run's read + decode), a scene-only run split at frame 12 and resumed (the
    same keyframes as the uninterrupted run, poses within 1e-3), the same
-   split with text on (ATE < 0.05), experiments 1-3 over the short list
+   split with text on (ATE < 0.05), experiments 1-3 over the first 12 frames
    (at least 2 keyframes each); prints those medians and the checkpoint's
    save and load times and size;
 9. scale-out (textslam_tpu_torch/parallel/), on a mesh of two shards of
@@ -133,9 +141,12 @@ Phases, each of which must pass (any failure exits non-zero):
    narrowing, RSS, host_bytes, device memory, the text-plane census of
    phase 6, printed and not held); then the amnesia run: the same
    fixture's frames 0..124 with tests/test_e2e_loop.py's amnesia from frame
-   100 on (the landmarks of the keyframes made before frame 50 forgotten),
-   which must close a loop through the decomposed pass, track and keep ATE
-   < 0.06 (its kernel calls not held again); (c) tests/test_long_regime.py's two
+   100 on (the landmarks of the keyframes made before frame 50 forgotten):
+   its first 100 frames are the rehearsal's, which saves its checkpoint
+   there, and a new TextSLAM loaded from it takes frames 100..124
+   (checkpoint MB, save and load ms printed); it must close a loop through
+   the decomposed pass, track and keep ATE < 0.06 (its kernel calls not
+   held again); (c) tests/test_long_regime.py's two
    scene-only fixtures at 640x480: the local-map narrowing of a 2,048-point
    pool runs, leaves more than 50 candidates at every call and keeps
    tracking at KF ATE < 0.02; a 1,024-point pool is never passed. 10(b)
@@ -166,6 +177,7 @@ import subprocess
 import sys
 import time
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 N_SCENE_FRAMES = 40
 N_TEXT_FRAMES = 24  # ~8 keyframes: at least 6 and below the 20 of the loop gate
 # the loop run: test_e2e_loop's fixture (its frame count, camera rate and
@@ -184,6 +196,11 @@ CLI_ATE_MAX = 0.05
 UNDISTORT_ERR_MAX = 6.0  # mean abs gray in the central region vs the ideal render
 UNDISTORT_DEV_ATOL = 1e-4  # gray, the reader on the card vs the same reader on the CPU
 RESUME_POSE_DIFF = 1e-3
+# the JPEG twin of the CLI set (torch_synth.encode_jpeg, color baseline 4:2:0) and
+# the reader's committed fixtures with cv2's digests (tests/jpeg_fixtures.py)
+CLI_JPEG_QUALITY = 90
+JPEG_TWIN_ERR_MAX = 2.0  # mean abs sample of a decoded frame against the image encoded
+FIXTURE_SETS = (("jpeg", "jpeg_reference.json"), ("png", "png_reference.json"))
 # Hamming shapes on the main path: tracked frames [P, 1000] for point pools
 # of 4096..32768, two-view init [3000, 3000], keyframe triangulation
 # [1000, 1000]; then ragged shapes that exercise the edge masking and the
@@ -1108,17 +1125,21 @@ def loop_setup():
                                                         N_LOOP_FRAMES // 2)
 
 
-def amnesia_track(slam, forget_before: int, from_frame: int):
+def amnesia_track(slam, forget_before: int, from_frame: int, quarter: int | None = None):
     """tests/test_e2e_loop.py's amnesia hooks on `slam`: from frame
     `from_frame` on, the tracker forgets the points and text objects hosted
     in the keyframes made before frame `forget_before`, so a return to that
     stretch maps it again and the two eras share no landmark. Returns
     track(img, t, detections), which feeds a frame as track_monocular does
     and sets the amnesia at those frames; track.amnesia["cutoff"] = None
-    lifts it."""
+    lifts it. A system resumed past frame `forget_before` is given the
+    keyframe count read there (`quarter`, track.amnesia["quarter"] of the
+    run that saved it)."""
     import numpy as np
 
     amnesia = {"cutoff": None}
+    if quarter is not None:
+        amnesia["quarter"] = quarter
 
     def amnesia_hook(pt_valid):
         cut = amnesia["cutoff"]
@@ -1394,6 +1415,32 @@ def _cli_ate(out_dir, gt):
     return len(ts), torch_synth.ate_rmse(ts * CLI_FPS, se3_np.inverse(poses_wc), gt)
 
 
+def check_fixtures() -> dict:
+    """Decode every committed fixture of the reader (tests/jpeg/, tests/png/)
+    with the port's decoders and hold it to the SHA-256, shape and dtype of
+    cv2.imdecode(IMREAD_UNCHANGED) recorded by tests/jpeg_fixtures.py.
+    Returns {set: files held}."""
+    import hashlib
+    import numpy as np
+    from textslam_tpu_torch.io import dataset as tds
+
+    out = {}
+    for folder, record in FIXTURE_SETS:
+        with open(os.path.join(HERE, "tests", record)) as f:
+            want = json.load(f)
+        t0 = time.perf_counter()
+        for name, rec in sorted(want.items()):
+            with open(os.path.join(HERE, "tests", folder, name), "rb") as f:
+                arr = np.ascontiguousarray(tds.decode_image(f.read(), name))
+            got = {"sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+                   "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            check(got == rec, f"fixture {folder}/{name}: decoded {got}, cv2 recorded {rec}")
+        out[folder] = len(want)
+        print(f"cli: {len(want)} committed {folder} fixtures decode to cv2's recorded digests "
+              f"({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    return out
+
+
 def run_cli(card: str):
     """The CLI path (phase 8): a dataset written to disk in the reference
     layout (distorted PNG frames, OCR files, yamls), read, decoded and
@@ -1419,6 +1466,26 @@ def run_cli(card: str):
                                                        n_short=N_CLI_SHORT, fps=CLI_FPS)
         print(f"cli: wrote {N_CLI_FRAMES} distorted 640x480 frames (PNG, all five row filters), "
               f"their OCR files and the yamls in {time.perf_counter() - t0:.1f} s")
+        root_jpg = os.path.join(root, "jpg")
+        t0 = time.perf_counter()
+        _, _, written_jpg = torch_synth.write_dataset(
+            root_jpg, N_CLI_FRAMES, seed=0, dist=CLI_DIST, n_short=N_CLI_SHORT, fps=CLI_FPS,
+            fmt="jpg", quality=CLI_JPEG_QUALITY)
+        print(f"cli: wrote the JPEG twin (color baseline 4:2:0, quality {CLI_JPEG_QUALITY}, "
+              f"torch_synth.encode_jpeg) in {time.perf_counter() - t0:.1f} s")
+        # 0. the reader's committed fixtures decode to cv2's recorded digests
+        res["fixtures"] = check_fixtures()
+        # the JPEG twin's frames decode near the images encoded
+        jerr = []
+        for i, img in enumerate(written_jpg):
+            with open(os.path.join(root_jpg, "images", f"{i:04d}.jpg"), "rb") as f:
+                dec = tds.decode_image(f.read(), f"{i:04d}.jpg")
+            check(dec.shape == img.shape and dec.dtype == np.uint8,
+                  f"cli: JPEG frame {i} decodes to {dec.shape} {dec.dtype}")
+            jerr.append(float(np.abs(dec.astype(np.int64) - img).mean()))
+        print(f"cli: JPEG twin, mean abs error of the decode against the encoded image "
+              f"{min(jerr):.3f}-{max(jerr):.3f} (BGR samples, bar {JPEG_TWIN_ERR_MAX})")
+        check(max(jerr) < JPEG_TWIN_ERR_MAX, f"cli: JPEG twin decode error {max(jerr)}")
         # 1. decode: every frame exactly the uint8 image written
         for i, img in enumerate(written):
             with open(os.path.join(root, "images", f"{i:04d}.png"), "rb") as f:
@@ -1485,8 +1552,8 @@ def run_cli(card: str):
         TextSLAM.load_checkpoint = _sync_timer(times, "load")(orig[3])
         checks, restore_checks = _kernel_checks(matching, patch_sample, label="cli")
 
-        def run(yaml, out, *extra):
-            rc = cli.main([os.path.join(root, yaml), os.path.join(root, out), *extra])
+        def run(yaml, out, *extra, at=root):
+            rc = cli.main([os.path.join(at, yaml), os.path.join(at, out), *extra])
             check(rc == 0, f"cli: {yaml} -> {out} exited {rc}")
 
         try:
@@ -1516,24 +1583,39 @@ def run_cli(card: str):
                   f"{n_kf} KFs (keyframe_latest {n_latest}), KF ATE {ate:.6f} (bar "
                   f"{CLI_ATE_MAX}), launches {launches}, calls held to the plain version "
                   f"{res['calls_held']} (max abs err {res['max_abs_err']})")
-            # the same run again with the checks off: the per-frame medians
-            times["track"], times["undistort"] = [], []
-            run("exp0.yaml", "out0_timed")
-            ds = datasets[-1]
-            res.update(read_decode_ms_median=float(np.median(ds.read_ms)),
-                       undistort_ms_median=float(np.median(times["undistort"])),
-                       track_ms_median=float(np.median(times["track"])))
-            print(f"cli per-frame medians (exp 0 again, checks off): read+decode "
-                  f"{res['read_decode_ms_median']:.3f} ms (host thread), undistort "
-                  f"{res['undistort_ms_median']:.3f} ms (upload, gray and remap on the card, "
-                  f"synchronized), track {res['track_ms_median']:.3f} ms (checked run, checks "
-                  f"left out: {res['track_ms_median_checked_run']:.3f} ms); checkpoint save ms "
-                  f"{[round(x, 1) for x in times['save']]}, {ckpt_mb:.1f} MB  [{card}]")
+            png_read_ms = float(np.median(datasets[-1].read_ms))
             check(n_latest == n_kf, f"cli: keyframe_latest has {n_latest} KFs, keyframe {n_kf}")
             check(n_kf >= 3, f"cli: only {n_kf} keyframes")
             check(ate < CLI_ATE_MAX, f"cli: KF ATE {ate} >= {CLI_ATE_MAX}")
             for k, n in launches.items():
                 check(n > 0, f"cli: the {k} kernel was never launched")
+            # the same run again with the checks off, on the JPEG twin: the
+            # per-frame medians
+            times["track"], times["undistort"] = [], []
+            for fn in counters.values():
+                fn.launches = 0
+            run("exp0.yaml", "out0_timed", at=root_jpg)
+            launches_jpg = {k: fn.launches for k, fn in counters.items()}
+            ds = datasets[-1]
+            n_kf_j, ate_j = _cli_ate(os.path.join(root_jpg, "out0_timed"), gt)
+            res.update(read_decode_ms_median_png=png_read_ms,
+                       read_decode_ms_median=float(np.median(ds.read_ms)),
+                       undistort_ms_median=float(np.median(times["undistort"])),
+                       track_ms_median=float(np.median(times["track"])),
+                       jpeg_keyframes=n_kf_j, jpeg_kf_ate=ate_j, jpeg_launches=launches_jpg)
+            print(f"cli run on the JPEG twin (exp 0, checks off): {n_kf_j} KFs, KF ATE "
+                  f"{ate_j:.6f} (bar {CLI_ATE_MAX}), launches {launches_jpg}")
+            print(f"cli per-frame medians: read+decode PNG {png_read_ms:.3f} ms (the checked "
+                  f"run), JPEG {res['read_decode_ms_median']:.3f} ms (host thread); on the JPEG "
+                  f"run: undistort {res['undistort_ms_median']:.3f} ms (upload, gray and remap "
+                  f"on the card, synchronized), track {res['track_ms_median']:.3f} ms (the "
+                  f"checked PNG run, checks left out: {res['track_ms_median_checked_run']:.3f} "
+                  f"ms); checkpoint save ms {[round(x, 1) for x in times['save']]}, "
+                  f"{ckpt_mb:.1f} MB  [{card}]")
+            check(n_kf_j >= 3, f"cli: only {n_kf_j} keyframes on the JPEG twin")
+            check(ate_j < CLI_ATE_MAX, f"cli: KF ATE {ate_j} >= {CLI_ATE_MAX} on the JPEG twin")
+            for k, n in launches_jpg.items():
+                check(n > 0, f"cli: the {k} kernel was never launched on the JPEG twin")
             check(stats.get("grouped_bilinear_stack", {}).get("calls", 0) > 0
                   and sum(stats.get(k, {}).get("calls", 0)
                           for k in ("hamming_matrix", "hamming_matrix_min")) > 0,
@@ -1559,7 +1641,7 @@ def run_cli(card: str):
             print(f"cli resume, text on: {n_kf_r} KFs, KF ATE {ate_r:.6f} (bar {CLI_ATE_MAX}); "
                   f"checkpoint load ms {[round(x, 1) for x in times['load']]}  [{card}]")
             check(n_kf_r >= 3 and ate_r < CLI_ATE_MAX, f"cli: text-on resume KF ATE {ate_r}")
-            # 7. experiments 1-3 over the short list
+            # 7. experiments 1-3 over their list
             exps = {}
             for exp in (1, 2, 3):
                 run(f"exp{exp}.yaml", f"out{exp}")
@@ -2068,11 +2150,11 @@ def _render(i: int):
 
 
 def frame_stream(spec: dict, stop: int | None = None, workers: int = RENDER_WORKERS,
-                 ahead: int = RENDER_AHEAD):
-    """Yield (frame, detections) for frames 0..stop-1 (stop: the sequence's
-    end by default) in order, rendered by `workers` spawned processes
-    (started with this process's sys.path) at most `ahead` frames ahead. The
-    pool stops when the generator ends or is closed."""
+                 ahead: int = RENDER_AHEAD, start: int = 0):
+    """Yield (frame, detections) for frames start..stop-1 (stop: the
+    sequence's end by default) in order, rendered by `workers` spawned
+    processes (started with this process's sys.path) at most `ahead` frames
+    ahead. The pool stops when the generator ends or is closed."""
     import concurrent.futures
     import multiprocessing
 
@@ -2082,7 +2164,7 @@ def frame_stream(spec: dict, stop: int | None = None, workers: int = RENDER_WORK
             initializer=_init_worker, initargs=(spec,)) as ex:
         pending = collections.deque()
         try:
-            for i in range(stop):
+            for i in range(start, stop):
                 while len(pending) < ahead and i + len(pending) < stop:
                     pending.append(ex.submit(_render, i + len(pending)))
                 yield pending.popleft().result()
@@ -2124,9 +2206,10 @@ def _sync_device(dev):
 
 
 def run_long(slam, frames, gt, every: int, card: str, check_ms=lambda: 0.0, census=None,
-             log=print) -> dict:
-    """Feed `frames` ((frame, detections) pairs, ground truth `gt`) to
-    `slam` and take a snapshot every `every` frames. Host times are
+             log=print, start: int = 0) -> dict:
+    """Feed `frames` ((frame, detections) pairs of frames start, start + 1,
+    ..., ground truth `gt`) to `slam` and take a snapshot every `every`
+    frames. Host times are
     synchronized and leave out check_ms() (checks made inside, as in
     chip_smoke.drive). census(), if given, returns a line printed in each
     snapshot. Returns the run's results."""
@@ -2178,7 +2261,7 @@ def run_long(slam, frames, gt, every: int, card: str, check_ms=lambda: 0.0, cens
     block = {"frame": [], "kf": [], "closures": 0, "narrow": 0}
     t_start = time.perf_counter()
     try:
-        for i, (img, dets) in enumerate(frames):
+        for i, (img, dets) in enumerate(frames, start):
             n_kf, tracking = len(m.keyframes), tr.state == 1
             _sync_device(dev)
             t0, c0 = time.perf_counter(), check_ms()
@@ -2372,7 +2455,7 @@ def _watch_closer(slam, runs: list):
     return unwatch
 
 
-def run_long_regime(card: str):
+def run_long_regime(card: str, checkpoint: str):
     """Phase 10(b): tests/test_scale_rehearsal.py's fixture through the port
     on the card (run_long): LONG_FRAMES frames of the text world (seed 3, 3
     boxes per plane) on the outback2 path, TextSLAMConfig() with the pools
@@ -2384,7 +2467,10 @@ def run_long_regime(card: str):
     (REHEARSAL_REFERENCE): it closed none either, and in both packages the
     covisibility exclusion left no keyframe eligible at any closer run.
     Snapshots every 50 frames, with the text-plane census of phase 6
-    (printed, not held)."""
+    (printed, not held). Saves the system at `checkpoint` just before frame
+    LONG_AMNESIA[1], with the keyframe count at frame LONG_AMNESIA[0] (what
+    the amnesia run forgets), for run_long_amnesia. The save is left out of
+    the frame times."""
     from textslam_tpu_torch.frontend import text
     from textslam_tpu_torch.ops import matching, patch_sample
     from textslam_tpu_torch.solver import ba, sim3_opt
@@ -2416,6 +2502,21 @@ def run_long_regime(card: str):
         n_good, cosines, failed = text_planes(slam, gt, world)
         return f"GOOD {n_good}: {_planes_line(cosines)}; outside the text bars: {failed}"
 
+    feed, saved = slam.track_monocular, {}
+
+    def track(img, t, detections=None):
+        if int(t) == LONG_AMNESIA[0]:
+            saved["quarter"] = len(slam.map.keyframes)
+        if int(t) == LONG_AMNESIA[1]:
+            _sync_device(slam.device)
+            t0 = time.perf_counter()
+            slam.save_checkpoint(checkpoint, extra={"amnesia_quarter": saved["quarter"]})
+            saved["ms"] = (time.perf_counter() - t0) * 1e3
+            CHECK_MS[0] += saved["ms"]
+        return feed(img, t, detections=detections)
+
+    slam.track_monocular = track
+
     try:
         res = run_long(slam, frame_stream(spec), gt, LONG_EVERY, card,
                        check_ms=lambda: CHECK_MS[0], census=census,
@@ -2432,6 +2533,8 @@ def run_long_regime(card: str):
     res["max_abs_err"] = {k: v["max_abs_err"] for k, v in checks["stats"].items()}
     res["tensor_devices"] = sorted(devices)
     res["closer_runs"] = closer_runs
+    res["checkpoint_save_ms"] = saved["ms"]
+    res["checkpoint_mb"] = os.path.getsize(checkpoint) / 2 ** 20
     for name, st in sorted(checks["stats"].items()):
         print(f"10b: {name} calls held against the plain version {st['calls']}, max abs err "
               f"{st['max_abs_err']:.3g}")
@@ -2494,37 +2597,54 @@ def run_long_regime(card: str):
     return res
 
 
-def run_long_amnesia(card: str):
-    """Phase 10(b), the amnesia run: the rehearsal's fixture again, frames
-    0..LONG_AMNESIA_STOP - 1, with tests/test_e2e_loop.py's amnesia from
-    frame LONG_AMNESIA[1] on (the landmarks of the keyframes made before
-    frame LONG_AMNESIA[0] forgotten), so the second excursion maps the start
-    again and the closer has keyframes that are not covisible with the
-    current one. Bars: at least one loop closed, every closure past 16
-    keyframes through the decomposed pass, no saturation drop, tracking,
-    online-trajectory ATE < 0.06. The kernel calls are not held again."""
+def run_long_amnesia(card: str, checkpoint: str):
+    """Phase 10(b), the amnesia run, resumed: the rehearsal's fixture again,
+    frames 0..LONG_AMNESIA_STOP - 1, with tests/test_e2e_loop.py's amnesia
+    from frame LONG_AMNESIA[1] on (the landmarks of the keyframes made
+    before frame LONG_AMNESIA[0] forgotten), so the second excursion maps the
+    start again and the closer has keyframes that are not covisible with the
+    current one. Until frame LONG_AMNESIA[1] the amnesia run is the
+    rehearsal (its hooks forget nothing before it), so the system that
+    run_long_regime saved there at `checkpoint`, with the keyframe count the
+    amnesia reads at frame LONG_AMNESIA[0], is loaded into a fresh TextSLAM,
+    which takes the remaining frames. Bars: at least one loop closed, every
+    closure past 16 keyframes through the decomposed pass, no saturation
+    drop, tracking, online-trajectory ATE < 0.06. The kernel calls are not
+    held again."""
     from textslam_tpu_torch.system import TextSLAM
 
     spec = world_spec("outback2", LONG_FRAMES, boxes_per_plane=3)
     _, gt, _ = make_world(spec)
-    slam = TextSLAM(long_config(LONG_FRAMES, decompose_kfs=LONG_DECOMPOSE_KFS), device="cuda")
-    slam.track_monocular = amnesia_track(slam, *LONG_AMNESIA)
+    cfg = long_config(LONG_FRAMES, decompose_kfs=LONG_DECOMPOSE_KFS)
+    save_at = LONG_AMNESIA[1]
     print(f"10b amnesia: frames 0..{LONG_AMNESIA_STOP - 1}, the landmarks of the KFs made "
-          f"before frame {LONG_AMNESIA[0]} forgotten from frame {LONG_AMNESIA[1]} on")
-    res = run_long(slam, frame_stream(spec, LONG_AMNESIA_STOP), gt, LONG_EVERY // 2, card,
-                   log=lambda s: print(s, flush=True))
+          f"before frame {LONG_AMNESIA[0]} forgotten from frame {save_at} on; resumed in a new "
+          f"TextSLAM from the rehearsal's checkpoint at frame {save_at}", flush=True)
+    ckpt_mb = os.path.getsize(checkpoint) / 2 ** 20
+    slam = TextSLAM(cfg, device="cuda")
+    t0 = time.perf_counter()
+    ex = slam.load_checkpoint(checkpoint)
+    _sync_device(slam.device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(ex.get("frame_count") == save_at, f"10b amnesia: the checkpoint holds "
+                                            f"{ex.get('frame_count')} frames, not {save_at}")
+    slam.track_monocular = amnesia_track(slam, *LONG_AMNESIA, quarter=ex["amnesia_quarter"])
+    res = run_long(slam, frame_stream(spec, LONG_AMNESIA_STOP, start=save_at), gt,
+                   LONG_EVERY // 2, card, log=lambda s: print(s, flush=True), start=save_at)
     res.pop("trajectory_ts"), res.pop("trajectory")
+    res.update(checkpoint_load_ms=load_ms, checkpoint_mb=ckpt_mb)
     closures = res["closures"]
     late = [c for c in closures if c["K"] > LONG_DECOMPOSE_KFS]
     res["decomposed_closures"] = sum(c["decomposed"] for c in late)
-    print(f"10b amnesia: {res['tracked']}/{res['frames']} tracked, {res['keyframes']} KFs, "
-          f"{res['points']} points, {res['texts']} texts, drops {res['saturation_drops']}, "
-          f"loops {res['loops']}, online ATE {res['ate']:.6f}, KF ATE {res['kf_ate']:.6f}; "
-          f"closures (K, ms, decomposed) "
+    print(f"10b amnesia: checkpoint at frame {save_at} {ckpt_mb:.1f} MB, load {load_ms:.1f} ms; "
+          f"resumed: {res['tracked']}/{res['frames']} tracked, "
+          f"{res['keyframes']} KFs, {res['points']} points, {res['texts']} texts, drops "
+          f"{res['saturation_drops']}, loops {res['loops']}, online ATE {res['ate']:.6f}, KF ATE "
+          f"{res['kf_ate']:.6f}; closures (K, ms, decomposed) "
           f"{[(c['K'], round(c['ms'], 1), c['decomposed']) for c in closures]}; per-frame "
           f"medians by {LONG_EVERY // 2} frames "
           f"{[round(x, 3) for x in res['frame_ms_median_by_block']]}  [{card}]")
-    check(len(res["loops"]) >= 1, "10b amnesia: the amnesia run closed no loop")
+    check(len(res["loops"]) >= 1, "10b amnesia: the resumed amnesia run closed no loop")
     check(all(c["decomposed"] for c in late),
           f"10b amnesia: a closure past {LONG_DECOMPOSE_KFS} KFs skipped the decomposed pass")
     check(not any(res["saturation_drops"].values()),
@@ -2593,8 +2713,13 @@ class LongSide:
 def run_long_side(card: str, out_path: str):
     """The process of LongSide (--long-side): the rehearsal, the amnesia
     run, then phase 10(c); writes their results to out_path."""
-    res = {"rehearsal": run_long_regime(card), "amnesia": run_long_amnesia(card),
-           "narrowing": run_narrowing(card)}
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "rehearsal_at_amnesia.npz")
+        res = {"rehearsal": run_long_regime(card, checkpoint=ckpt),
+               "amnesia": run_long_amnesia(card, checkpoint=ckpt)}
+    res["narrowing"] = run_narrowing(card)
     with open(out_path, "w") as f:
         json.dump(res, f, default=float)
 
@@ -2701,7 +2826,10 @@ def _long_summary(native: dict, longrun: dict, amnesia: dict, narrowing: dict) -
                           "closer_runs": len(runs),
                           "closer_max_eligible": max(r["eligible"] for r in runs)},
             "closures": closures(longrun), "snapshots": longrun["snapshots"],
-            "amnesia_run": {**{k: amnesia[k] for k in keys}, "closures": closures(amnesia)},
+            "amnesia_run": {**{k: amnesia[k] for k in keys}, "closures": closures(amnesia),
+                            "checkpoint_mb": amnesia["checkpoint_mb"],
+                            "checkpoint_load_ms": amnesia["checkpoint_load_ms"],
+                            "checkpoint_save_ms": longrun["checkpoint_save_ms"]},
             "narrowing": narrowing}
 
 
@@ -2746,11 +2874,12 @@ def main() -> int:
         return 0
 
     t0 = time.perf_counter()
-    names = ("hamming", "patch_sample")
+    # the two kernels (nvcc) and the reader's host routines (g++), all started together
+    names = ("hamming", "patch_sample", "jpeg_decode", "png_unfilter")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         libs = list(ex.map(cuda_lib.build, names))
     print(f"built {[os.path.relpath(p, root) for p in libs]} in "
-          f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
+          f"{time.perf_counter() - t0:.2f} s (nvcc and g++ in parallel)")
     if args.long_only:
         side = LongSide()
         try:

@@ -307,3 +307,79 @@ def test_text_map_with_pyramids_round_trips(tmp_path):
     assert tf2._pool_version == 1 and tf2.map is m
     # the restored generator continues the saved stream
     assert torch.equal(torch.rand(3, generator=tf2._gen), torch.rand(3, generator=tf._gen))
+
+
+# --------------------------------------------------------------------------
+# a text-on resume, field by field: tests/torch_synth.system_state holds every
+# field of the map, tracker, text frontend and loop closer; the fields a
+# checkpoint deliberately does not restore are torch_synth.RESUME_NOT_RESTORED,
+# each with its reason
+TEXT_FRAMES, TEXT_SAVE = 10, 7
+
+
+def _text_cfg(mod):
+    return mod.TextSLAMConfig(
+        camera=mod.CameraConfig(fx=210.0, fy=210.0, cx=160.0, cy=120.0, width=320, height=240,
+                                fps=10.0),
+        orb=mod.ORBConfig(n_features=500, n_features_init=1500))
+
+
+@pytest.fixture(scope="module")
+def text_resume(tmp_path_factory):
+    """The port with text on over TEXT_FRAMES frames of the text world at
+    320x240, saved after TEXT_SAVE frames and loaded into a fresh TextSLAM
+    that takes the same later frames: (checkpoint path, the live system's
+    state after the load and after each later frame, the resumed system's
+    likewise, the live system's text frontend at the save)."""
+    K = torch_synth.K.copy()
+    K[:2] /= 2
+    frames, dets, _, _ = torch_synth.render_text_sequence(TEXT_FRAMES, K_mat=K, size=(320, 240))
+    live = TextSLAM(_text_cfg(tcfg), device="cpu")
+    path = str(tmp_path_factory.mktemp("ckpt_text") / "text.npz")
+    for i in range(TEXT_SAVE):
+        live.track_monocular(frames[i], float(i), detections=dets[i])
+    saved = {"klt": live.tracker.text_frontend._klt is not None,
+             "rows": live.tracker.text_frontend.last_text_rows}
+    live.save_checkpoint(path)
+    resumed = TextSLAM(_text_cfg(tcfg), device="cpu")
+    resumed.load_checkpoint(path)
+    states = [(torch_synth.system_state(live), torch_synth.system_state(resumed))]
+    for i in range(TEXT_SAVE, TEXT_FRAMES):
+        for s in (live, resumed):
+            s.track_monocular(frames[i], float(i), detections=dets[i])
+        states.append((torch_synth.system_state(live), torch_synth.system_state(resumed)))
+    return path, states, saved
+
+
+def test_text_resume_restores_every_field(text_resume):
+    """Right after the load, every field but the listed ones equals the live
+    system's: the JAX checkpoint's fields, and the three the port saves
+    beyond them (the text-row count that picks the next pose gate, the
+    maturation cursor, the KLT accumulator of new boxes), which the parent
+    tree lost (its resumed run then took another pose at the next frame and
+    other text objects at the next keyframe)."""
+    _, states, saved = text_resume
+    assert saved["klt"] and saved["rows"] > 0, "the save point must exercise the KLT and row count"
+    live, resumed = states[0]
+    assert torch_synth.resume_diff(live, resumed) == {}
+    # what a load leaves out is in the list: the pool cache at least
+    assert "tracker.text_frontend._pool_version" in torch_synth.state_diff(live, resumed)
+
+
+def test_text_resume_repeats_the_uninterrupted_run(text_resume):
+    """The resumed system takes every later frame exactly as the live one
+    does: all fields equal after each frame, keyframe insertions included."""
+    _, states, _ = text_resume
+    for i, (live, resumed) in enumerate(states[1:], TEXT_SAVE):
+        assert torch_synth.resume_diff(live, resumed) == {}, f"frame {i}"
+    assert live["map.keyframes.len"] > states[0][0]["map.keyframes.len"], \
+        "a keyframe after the save"
+
+
+def test_text_checkpoint_loads_in_jax(text_resume):
+    """The port's extra keys (tf_last_text_rows, tf_imm_rr, tf_klt_*) do not
+    stop the JAX package's load."""
+    path, states, _ = text_resume
+    jm = jckpt.load(path, _text_cfg(jcfg))
+    assert len(jm.keyframes) == states[0][0]["map.keyframes.len"]
+    np.testing.assert_array_equal(jm.kf_pose, states[0][0]["map.kf_pose"])

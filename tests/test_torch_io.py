@@ -1,8 +1,9 @@
 """The port's dataset path against OpenCV and the JAX package on the CPU:
 the experiment-yaml parser (textslam_tpu_torch.config.load_yaml, no cv2)
 against cv2.FileStorage and the JAX load_yaml; the PNG decoder (io/png.py)
-exactly equal to cv2.imdecode(IMREAD_UNCHANGED) on every supported format
-and on each of the five row filters; the gray conversion exactly equal to
+exactly equal to cv2.imdecode(IMREAD_UNCHANGED) on every format (palette,
+1/2/4-bit, tRNS, 16-bit, Adam7-interlaced) and on each of the five row
+filters; a JPEG dataset (io/jpeg.py) through both readers; the gray conversion exactly equal to
 cv2.cvtColor, and color frames through both readers equal; the undistorted
 frames of io.dataset.Dataset within 1e-3 of the JAX Dataset's (cv2.remap)
 on a distorted disk dataset; and the text-file readers and the TUM writer
@@ -136,14 +137,59 @@ def test_png_rejects_unsupported_and_corrupt_files():
         return png.SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, depth, ctype, 0, 0,
                                                            interlace))
 
-    for data, what in ((header(8, 3, 0), "palette"), (header(8, 0, 1), "interlaced"),
-                       (header(4, 0, 0), "bit depth 4"), (b"\xff\xd8\xff\xe0", "not a PNG")):
+    for data, what in ((header(8, 3, 0), "palette file without a valid PLTE"),
+                       (header(8, 0, 2), "corrupt IHDR chunk .*interlace 2"),
+                       (header(4, 2, 0), "corrupt IHDR chunk .*bit depth 4"),
+                       (header(16, 3, 0), "corrupt IHDR chunk .*bit depth 16"),
+                       (b"\xff\xd8\xff\xe0", "not a PNG")):
         with pytest.raises(ValueError, match=what):
             png.decode(data + _chunk(b"IEND", b""), "x.png")
     good = bytearray(torch_synth.encode_png(IMAGES["gray"]))
     good[-20] ^= 1  # inside the IDAT chunk
     with pytest.raises(ValueError, match="x.png: CRC mismatch"):
         png.decode(bytes(good), "x.png")
+    idx = np.full((4, 4), 3, np.uint8)  # a palette index past a 2-entry PLTE
+    with pytest.raises(ValueError, match="x.png: palette index past"):
+        png.decode(torch_synth.png_file(idx, 8, 3, plte=np.zeros((2, 3))), "x.png")
+    short = torch_synth.png_file(IMAGES["gray"][:8], 8, 0, interlace=True)
+    tall = png.SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", 37, 23, 8, 0, 0, 0, 1))
+    with pytest.raises(ValueError, match="x.png: (image data too short|unknown PNG filter)"):
+        png.decode(tall + short[8 + 25:], "x.png")  # the IHDR says 23 rows, the data holds 8
+
+
+# the PNG variants: (samples, bit depth, color type, PLTE, tRNS) per kind
+_PAL = _RNG.integers(0, 256, (11, 3))
+VARIANTS = {
+    "gray1": (_RNG.integers(0, 2, (23, 37)), 1, 0, None, None),
+    "gray2": (_RNG.integers(0, 4, (23, 37)), 2, 0, None, None),
+    "gray4_trns": (_RNG.integers(0, 16, (23, 37)), 4, 0, None, b"\x00\x03"),
+    "pal1": (_RNG.integers(0, 2, (23, 37)), 1, 3, _PAL[:2], None),
+    "pal2_trns": (_RNG.integers(0, 4, (23, 37)), 2, 3, _PAL[:4], b"\x00\x80"),
+    "pal4": (_RNG.integers(0, 11, (23, 37)), 4, 3, _PAL, None),
+    "pal8_trns": (_RNG.integers(0, 11, (23, 37)), 8, 3, _PAL, bytes(range(0, 250, 25))),
+    "rgb8_trns": (_RNG.integers(0, 2, (23, 37, 3)) * 200, 8, 2, None,
+                  b"\x00\xc8\x00\x00\x00\xc8"),
+    "rgb16_trns": (_RNG.integers(0, 2, (23, 37, 3)) * 700, 16, 2, None,
+                   b"\x02\xbc\x00\x00\x00\x00"),
+    "rgba16": (_RNG.integers(0, 65536, (23, 37, 4)), 16, 6, None, None),
+    "gray_alpha16": (_RNG.integers(0, 65536, (23, 37, 2)), 16, 4, None, None),
+}
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["straight", "adam7"])
+@pytest.mark.parametrize("kind", sorted(VARIANTS))
+def test_png_variants_equal_cv2(kind, interlace):
+    """Palette, sub-byte, tRNS and 16-bit files, plain and Adam7-interlaced,
+    in every row filter: equal to cv2.imdecode(IMREAD_UNCHANGED)."""
+    samples, depth, ctype, plte, trns = VARIANTS[kind]
+    samples = samples.astype(np.uint16 if depth == 16 else np.uint8)
+    for filters in ((0,), (4, 3, 2, 1, 0)):
+        data = torch_synth.png_file(samples, depth, ctype, filters, idat_chunks=2,
+                                    interlace=interlace, plte=plte, trns=trns)
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+        got = png.decode(data)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("rgb", [False, True])
@@ -214,11 +260,49 @@ def test_color_dataset_equals_jax(tmp_path, rgb):
             np.testing.assert_array_equal(td[i][0].numpy(), jd[i][0])
 
 
-def test_dataset_cuda_without_gpu_raises(disk):
+def test_dataset_cuda_without_gpu_raises(disk, jpeg_disk):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")
-    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
-        tds.Dataset(tcfg.load_yaml(os.path.join(disk[0], "exp0.yaml")), device="cuda")
+    for root in (disk[0], jpeg_disk[0]):
+        with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+            tds.Dataset(tcfg.load_yaml(os.path.join(root, "exp0.yaml")), device="cuda")
+
+
+@pytest.fixture(scope="module")
+def jpeg_disk(tmp_path_factory):
+    """The disk fixture's 3 frames in color as baseline 4:2:0 JPEG
+    (torch_synth.tint_bgr, encode_jpeg)."""
+    root = str(tmp_path_factory.mktemp("io_seq_jpg"))
+    gt, world, written = torch_synth.write_dataset(root, 3, dist=DIST, K_mat=K_HALF, size=SMALL,
+                                                   n_short=2, fmt="jpg")
+    return root, written
+
+
+def test_jpeg_dataset_matches_jax(jpeg_disk):
+    """A JPEG set through both readers (the JAX reader decodes with cv2):
+    samples equal to cv2's decode, undistorted frames within UNDISTORT_ATOL,
+    detections equal."""
+    from textslam_tpu_torch.io import jpeg
+
+    root, written = jpeg_disk
+    yml = os.path.join(root, "exp0.yaml")
+    tc, jc = tcfg.load_yaml(yml), jcfg.load_yaml(yml)
+    jd = jds.Dataset(jc)
+    with tds.Dataset(tc, device="cpu") as td:
+        assert len(td) == len(jd) == 3
+        for i in range(3):
+            samples, ts, dets = td.read(i)
+            with open(os.path.join(root, "images", f"{i:04d}.jpg"), "rb") as f:
+                data = f.read()
+            np.testing.assert_array_equal(samples, cv2.imdecode(np.frombuffer(data, np.uint8),
+                                                                cv2.IMREAD_UNCHANGED))
+            np.testing.assert_array_equal(samples, jpeg.decode(data))
+            jimg, jts, jdets = jd[i]
+            assert ts == jts
+            err = np.abs(td.image(samples).numpy() - jimg).max()
+            assert err < UNDISTORT_ATOL, f"frame {i}: {err}"
+            _same(dets, jdets)
+            assert np.abs(samples.astype(np.int64) - written[i]).mean() < 3.0
 
 
 # tests/test_io.py's cases, each read by both packages

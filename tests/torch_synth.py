@@ -525,34 +525,54 @@ def _png_filter(x: np.ndarray, prior: np.ndarray, ftype: int, bpp: int) -> np.nd
     return ((x - pred) & 255).astype(np.uint8)
 
 
-def encode_png(img: np.ndarray, filters=(0, 1, 2, 3, 4), idat_chunks: int = 1,
-               color: str = "bgr") -> bytes:
-    """PNG bytes of a uint8 / uint16 image: [H, W] gray, or [H, W, 3|4] in
-    OpenCV's BGR(A) order (color="bgr", as cv2.imwrite takes it) or stored
-    as it is (color="raw": [H, W, 2] is gray+alpha). Row r uses filter
-    filters[r % len(filters)]; the compressed stream is split over
+# Adam7 passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _png_rows(samples: np.ndarray, depth: int) -> np.ndarray:
+    """[h, w, ch] samples -> [h, row bytes] as PNG stores them (big-endian
+    16-bit samples; 1, 2 and 4-bit samples packed from the high bit, each
+    row padded to a byte)."""
+    h, w, ch = samples.shape
+    if depth == 16:
+        return np.ascontiguousarray(samples.astype(">u2")).view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    per = 8 // depth
+    v = samples.reshape(h, w * ch).astype(np.uint8)
+    v = np.pad(v, ((0, 0), (0, -v.shape[1] % per)))
+    v = v.reshape(h, -1, per)
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    return np.bitwise_or.reduce(v << shifts, axis=2).astype(np.uint8)
+
+
+def png_file(samples: np.ndarray, depth: int, ctype: int, filters=(0, 1, 2, 3, 4),
+             idat_chunks: int = 1, interlace: bool = False, plte=None, trns=None) -> bytes:
+    """PNG bytes of samples [H, W, ch] stored as they are (gray, RGB, palette
+    indices, gray+alpha, RGBA) at bit depth `depth` and color type `ctype`,
+    with an optional PLTE ([n, 3] RGB) and tRNS chunk (bytes as the PNG
+    stores them), Adam7-interlaced on request. Row r of each pass uses
+    filter filters[r % len(filters)]; the compressed stream is split over
     idat_chunks IDAT chunks. Written per row in Python: for test data."""
-    img = np.asarray(img)
-    if img.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"encode_png: dtype {img.dtype}")
-    if img.ndim == 2:
-        img = img[:, :, None]
-    ch = img.shape[2]
-    if color == "bgr" and ch >= 3:
-        img = img[:, :, [2, 1, 0, 3][:ch]]
-    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
-    depth = 16 if img.dtype == np.uint16 else 8
-    h, w = img.shape[:2]
-    rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(np.uint8)
-    rows = rows.reshape(h, -1).astype(np.int16)
-    bpp = ch * depth // 8
-    prior = np.zeros(rows.shape[1], np.int16)
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
     raw = bytearray()
-    for r in range(h):
-        t = filters[r % len(filters)]
-        raw.append(t)
-        raw += _png_filter(rows[r], prior, t, bpp).tobytes()
-        prior = rows[r]
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.shape[0] == 0 or sub.shape[1] == 0:
+            continue
+        rows = _png_rows(sub, depth).astype(np.int16)
+        prior = np.zeros(rows.shape[1], np.int16)
+        for r in range(rows.shape[0]):
+            t = filters[r % len(filters)]
+            raw.append(t)
+            raw += _png_filter(rows[r], prior, t, bpp).tobytes()
+            prior = rows[r]
     comp = zlib.compress(bytes(raw), 6)
     step = -(-len(comp) // idat_chunks)
 
@@ -561,10 +581,240 @@ def encode_png(img: np.ndarray, filters=(0, 1, 2, 3, 4), idat_chunks: int = 1,
                 + struct.pack(">I", zlib.crc32(body, zlib.crc32(kind))))
 
     out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
-                                                         0, 0, 0))
+                                                         0, 0, int(interlace)))
+    if plte is not None:
+        out += chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
+    if trns is not None:
+        out += chunk(b"tRNS", bytes(trns))
     for i in range(idat_chunks):
         out += chunk(b"IDAT", comp[i * step:(i + 1) * step])
     return out + chunk(b"IEND", b"")
+
+
+def encode_png(img: np.ndarray, filters=(0, 1, 2, 3, 4), idat_chunks: int = 1,
+               color: str = "bgr", interlace: bool = False) -> bytes:
+    """PNG bytes of a uint8 / uint16 image: [H, W] gray, or [H, W, 3|4] in
+    OpenCV's BGR(A) order (color="bgr", as cv2.imwrite takes it) or stored
+    as it is (color="raw": [H, W, 2] is gray+alpha); png_file's filters,
+    IDAT split and interlacing."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"encode_png: dtype {img.dtype}")
+    if img.ndim == 2:
+        img = img[:, :, None]
+    ch = img.shape[2]
+    if color == "bgr" and ch >= 3:
+        img = img[:, :, [2, 1, 0, 3][:ch]]
+    return png_file(img, 16 if img.dtype == np.uint16 else 8, {1: 0, 2: 4, 3: 2, 4: 6}[ch],
+                    filters, idat_chunks, interlace)
+
+
+# JPEG's Annex K tables: luminance and chrominance quantization (quality
+# 50, zigzag order) and the Huffman tables (16 code-length counts, values)
+_JPEG_Q = (bytes.fromhex("100b0c0e0c0a100e0d0e1211101318281a181616183123251d283a333d3c3933383740"
+                         "485c4e404457453738506d51575f626768673e4d71797064785c656763"),
+           bytes.fromhex("1112121815182f1a1a2f634238426363636363636363636363636363636363636363"
+                         "636363636363636363636363636363636363636363636363636363636363"))
+_JPEG_DC = ((bytes.fromhex("00010501010101010100000000000000"), bytes(range(12))),
+            (bytes.fromhex("00030101010101010101010000000000"), bytes(range(12))))
+_JPEG_AC = (
+    (bytes.fromhex("0002010303020403050504040000017d"), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718"
+        "191a25262728292a3435363738393a434445464748494a535455565758595a636465666768696a737475"
+        "767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+        "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    (bytes.fromhex("00020102040403040705040400010277"), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125"
+        "f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768696a7374"
+        "75767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9ba"
+        "c2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")))
+
+
+def _huffman_codes(counts: bytes, values: bytes):
+    """Canonical codes of a JPEG Huffman table: (code [256], length [256]) by symbol."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code = k = 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            code_of[values[k]], len_of[values[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _jpeg_qtable(i: int, quality: int, baseline: bool) -> np.ndarray:
+    """libjpeg's jpeg_set_quality scaling of Annex K table i (zigzag order);
+    values above 255 only when not baseline."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    q = (np.frombuffer(_JPEG_Q[i], np.uint8).astype(np.int64) * scale + 50) // 100
+    return q.clip(1, 255 if baseline else 32767)
+
+
+def _pack_bits(vals: np.ndarray, lens: np.ndarray) -> bytes:
+    """Concatenate codes (value, bit length), pad the last byte with 1 bits
+    and stuff a 0x00 after every 0xFF byte."""
+    total = int(lens.sum())
+    rep = np.repeat(vals, lens)
+    offs = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+    bits = ((rep >> (np.repeat(lens, lens) - 1 - offs)) & 1).astype(np.uint8)
+    by = np.packbits(np.concatenate([bits, np.ones(-total % 8, np.uint8)]))
+    return np.insert(by, np.flatnonzero(by == 0xFF) + 1, 0).tobytes()
+
+
+def _size_bits(v: np.ndarray):
+    """JPEG's magnitude category of each value and its value bits."""
+    size = np.zeros(v.shape, np.int64)
+    a = np.abs(v)
+    nz = a > 0
+    size[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+    return size, np.where(v >= 0, v, v + (1 << size) - 1)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 90, sampling: str = "420", restart: int = 0,
+                baseline: bool = True) -> bytes:
+    """A baseline (SOF0; SOF1 with 16-bit tables when baseline=False lets a
+    table pass 255) sequential JPEG of a uint8 image, in numpy: [H, W] gray,
+    or [H, W, 3] in OpenCV's BGR order as JFIF YCbCr sampled 4:2:0
+    (sampling="420") or 4:4:4 ("444"). Annex K tables scaled to `quality`
+    as libjpeg scales them, a float DCT, an optional restart interval (in
+    MCUs). The DCT, quantization and code assembly are vectorized; Python
+    loops only over restart segments. For test data: libjpeg's encoder
+    differs in its DCT and color rounding, so the files are not cv2's."""
+    from textslam_tpu_torch.io.jpeg import NATURAL_ORDER
+
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"encode_jpeg: a uint8 [H, W] or [H, W, 3] image, got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    if img.ndim == 2:
+        planes, factors = [img.astype(np.float64)], [(1, 1)]
+    else:
+        b, g, r = (img[:, :, i].astype(np.float64) for i in range(3))
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128.0]
+        f = {"420": 2, "444": 1}[sampling]
+        factors = [(f, f), (1, 1), (1, 1)]
+    hmax = max(fx for fx, _ in factors)
+    mcu = 8 * hmax
+    mh, mw = -(-h // mcu), -(-w // mcu)
+    # DCT-II basis, orthonormal
+    k = np.arange(8)
+    C = np.sqrt(2 / 8) * np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16)
+    C[0] /= np.sqrt(2)
+    coefs, grids = [], []
+    for i, (pl, (fx, fy)) in enumerate(zip(planes, factors)):
+        pl = np.pad(pl, ((0, mh * mcu - h), (0, mw * mcu - w)), mode="edge")
+        if hmax // fx > 1:  # subsample by the block mean
+            s = hmax // fx
+            pl = pl.reshape(pl.shape[0] // s, s, pl.shape[1] // s, s).mean((1, 3))
+        bh, bw = pl.shape[0] // 8, pl.shape[1] // 8
+        blocks = pl.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3) - 128.0
+        dct = np.einsum("ij,abjk,lk->abil", C, blocks, C).reshape(bh, bw, 64)
+        q = np.zeros(64, np.int64)
+        q[NATURAL_ORDER] = _jpeg_qtable(min(i, 1), quality, baseline)
+        coefs.append(np.rint(dct / q).astype(np.int64)[:, :, NATURAL_ORDER])  # zigzag
+        grids.append((fx, fy))
+    # blocks in scan order: MCU by MCU, each component's fx x fy blocks
+    order_c, order_b = [], []
+    for c, (fx, fy) in enumerate(grids):
+        by, bx = np.meshgrid(np.arange(fy), np.arange(fx), indexing="ij")
+        my, mx = np.meshgrid(np.arange(mh), np.arange(mw), indexing="ij")
+        rows = (my.reshape(-1, 1) * fy + by.reshape(1, -1))
+        cols = (mx.reshape(-1, 1) * fx + bx.reshape(1, -1))
+        order_c.append(np.full(rows.shape, c))
+        order_b.append(coefs[c][rows, cols])  # [MCUs, blocks of c, 64]
+    zz = np.concatenate(order_b, 1)  # [MCUs, blocks per MCU, 64]
+    comp = np.concatenate(order_c, 1)[0]
+    n_mcu, per = zz.shape[:2]
+    zz = zz.reshape(-1, 64)
+    bcomp = np.tile(comp, n_mcu)
+    mcu_of = np.repeat(np.arange(n_mcu), per)
+    seg = mcu_of // restart if restart else np.zeros_like(mcu_of)
+    tab = np.minimum(bcomp, 1)
+    dc_tabs = [_huffman_codes(*t) for t in _JPEG_DC]
+    ac_tabs = [_huffman_codes(*t) for t in _JPEG_AC]
+
+    def huff(tabs, t, sym):
+        """(code, length) of each symbol in its block's table (0: luma)."""
+        return (np.where(t == 0, tabs[0][0][sym], tabs[1][0][sym]),
+                np.where(t == 0, tabs[0][1][sym], tabs[1][1][sym]))
+
+    # events (block, position, step) -> (value, bit length)
+    keys, vals, lens = [], [], []
+
+    def emit(blk, pos, step, v, n):
+        keys.append(np.stack([blk, pos, step], 1))
+        vals.append(np.asarray(v, np.int64))
+        lens.append(np.asarray(n, np.int64))
+
+    nb = len(zz)
+    diff = np.zeros(nb, np.int64)
+    for c in range(len(grids)):
+        idx = np.flatnonzero(bcomp == c)
+        dc = zz[idx, 0]
+        prev = np.concatenate([[0], dc[:-1]])
+        prev[np.flatnonzero(np.diff(np.concatenate([[-1], seg[idx]])))] = 0
+        diff[idx] = dc - prev
+    size, bits = _size_bits(diff)
+    ar, zero = np.arange(nb), np.zeros(nb, np.int64)
+    emit(ar, zero, zero, *huff(dc_tabs, tab, size))
+    emit(ar, zero, zero + 1, bits, size)
+    blk, pos = np.nonzero(zz[:, 1:])
+    pos = pos + 1
+    v = zz[blk, pos]
+    first = np.concatenate([[True], blk[1:] != blk[:-1]])
+    prev_pos = np.where(first, 0, np.concatenate([[0], pos[:-1]]))
+    run = pos - prev_pos - 1
+    nzrl = run // 16  # a ZRL (16 zeros) symbol each
+    size, bits = _size_bits(v)
+    zb = np.repeat(blk, nzrl)
+    zstep = np.arange(len(zb)) - np.repeat(np.cumsum(nzrl) - nzrl, nzrl)
+    emit(zb, np.repeat(pos, nzrl), zstep, *huff(ac_tabs, tab[zb], np.full(len(zb), 0xF0)))
+    emit(blk, pos, nzrl, *huff(ac_tabs, tab[blk], (run % 16) * 16 + size))
+    emit(blk, pos, nzrl + 1, bits, size)
+    last = np.zeros(nb, np.int64)
+    np.maximum.at(last, blk, pos)
+    eob = np.flatnonzero(last < 63)
+    emit(eob, np.full(len(eob), 64), np.zeros(len(eob), np.int64),
+         *huff(ac_tabs, tab[eob], np.zeros(len(eob), np.int64)))
+    key = np.concatenate(keys)
+    order = np.lexsort((key[:, 2], key[:, 1], key[:, 0]))
+    vals, lens = np.concatenate(vals)[order], np.concatenate(lens)[order]
+    ev_seg = seg[key[order, 0]]
+    data = bytearray()
+    bounds = np.searchsorted(ev_seg, np.arange(int(seg[-1]) + 2))
+    for i in range(len(bounds) - 1):
+        if i:
+            data += bytes([0xFF, 0xD0 + (i - 1) % 8])
+        data += _pack_bits(vals[bounds[i]:bounds[i + 1]], lens[bounds[i]:bounds[i + 1]])
+
+    def segment(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    nq = min(len(grids), 2)
+    qt = [_jpeg_qtable(i, quality, baseline) for i in range(nq)]
+    wide = any(int(t.max()) > 255 for t in qt)
+    out = b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for i, t in enumerate(qt):
+        out += segment(0xDB, bytes([(16 if wide else 0) | i])
+                       + (t.astype(">u2").tobytes() if wide else t.astype(np.uint8).tobytes()))
+    sof = struct.pack(">BHHB", 8, h, w, len(grids))
+    for c, (fx, fy) in enumerate(grids):
+        sof += bytes([c + 1, fx * 16 + fy, min(c, 1)])
+    out += segment(0xC1 if wide else 0xC0, sof)
+    for i in range(nq):
+        out += segment(0xC4, bytes([i]) + _JPEG_DC[i][0] + _JPEG_DC[i][1])
+        out += segment(0xC4, bytes([0x10 | i]) + _JPEG_AC[i][0] + _JPEG_AC[i][1])
+    if restart:
+        out += segment(0xDD, struct.pack(">H", restart))
+    sos = bytes([len(grids)])
+    for c in range(len(grids)):
+        sos += bytes([c + 1, 0x11 * min(c, 1)])
+    out += segment(0xDA, sos + bytes([0, 63, 0]))
+    return out + bytes(data) + b"\xff\xd9"
 
 
 def write_yaml(path, exp_name, read_path, read_list, K_mat=None, size=None, dist=(0,) * 5,
@@ -588,16 +838,31 @@ def write_yaml(path, exp_name, read_path, read_list, K_mat=None, size=None, dist
         f.write(f"Camera.fps: {fps}\nCamera.RGB: 0\n")
 
 
+def tint_bgr(gray: np.ndarray) -> np.ndarray:
+    """A [H, W, 3] BGR frame whose cv2 BGR2GRAY is `gray` within a level or
+    two where no channel clips: red and blue gains that vary smoothly over
+    the image (as a camera's white balance and lens shading leave them),
+    the green channel offsetting their weight in the gray."""
+    h, w = gray.shape
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    g = gray.astype(np.float64)
+    a = 0.12 * np.sin(2 * np.pi * x / w + 0.7) * np.cos(np.pi * y / h) * g  # red
+    b = 0.12 * np.cos(2 * np.pi * y / h + 0.3) * np.sin(np.pi * x / w) * g  # blue
+    green = g - (9798 * a + 3735 * b) / 19235
+    return np.rint(np.stack([g + b, green, g + a], -1)).clip(0, 255).astype(np.uint8)
+
+
 def write_dataset(root, n_frames: int, seed=0, kind="lateral", dist=(-0.05, 0.01, 0.0, 0.0, 0.0),
-                  K_mat=None, size=None, n_short=12, fps=10.0):
+                  K_mat=None, size=None, n_short=12, fps=10.0, fmt="png", quality=90):
     """The text world rendered to disk in the reference's dataset layout
     (tests/test_cli_e2e.py's fixture): DISTORTED frames as PNG (all five
-    row filters) under images/, the ground-truth detections as
+    row filters; fmt="jpg": the frame in color, tint_bgr, as a baseline
+    4:2:0 JPEG at `quality`, encode_jpeg) under images/, the ground-truth detections as
     text/<stem>_dete.txt / _mean.txt (frame 5 adds a CJK and a "#" probe
     line), Imlist.txt (every frame) and Imshort.txt (the first n_short), and
     the yamls: exp0 (Imlist) and exp1-3 (Imshort), scene-only nt_full /
     nt_short, text-on t_short. Returns (ground-truth Tcw [N, 7], world, the
-    written uint8 frames)."""
+    uint8 frames encoded: [H, W] gray PNG, [H, W, 3] BGR JPEG)."""
     import os
 
     Km = K if K_mat is None else K_mat
@@ -608,11 +873,13 @@ def write_dataset(root, n_frames: int, seed=0, kind="lateral", dist=(-0.05, 0.01
     os.makedirs(os.path.join(root, "text"), exist_ok=True)
     lines, written = [], []
     for i, p in enumerate(poses):
-        name = f"images/{i:04d}.png"
+        name = f"images/{i:04d}.{fmt}"
         img = render_distorted(world, p, rays, Km).clip(0, 255).astype(np.uint8)
+        if fmt == "jpg":
+            img = tint_bgr(img)
         written.append(img)
         with open(os.path.join(root, name), "wb") as f:
-            f.write(encode_png(img))
+            f.write(encode_png(img) if fmt == "png" else encode_jpeg(img, quality, "420"))
         stem = os.path.join(root, "text", f"{i:04d}")
         with open(stem + "_dete.txt", "w") as fd, \
                 open(stem + "_mean.txt", "w", encoding="utf-8") as fm:
@@ -638,3 +905,119 @@ def write_dataset(root, n_frames: int, seed=0, kind="lateral", dist=(-0.05, 0.01
     write_yaml(os.path.join(root, "nt_short.yaml"), 0, root, "Imshort", no_text=1, **cam)
     write_yaml(os.path.join(root, "t_short.yaml"), 0, root, "Imshort", **cam)
     return poses, world, written
+
+
+# a TextSLAM's state, field by field, for comparing a resumed system with the
+# uninterrupted one (tests/test_torch_checkpoint.py, chip_resume_diff.py)
+_STATE_OWNERS = ("map", "tracker", "tracker.text_frontend", "loop_closer")
+# attributes that hold a link to another owner, the config, a device or a
+# hook, not state
+_STATE_LINKS = frozenset({"cfg", "map", "tracker", "text_frontend", "loop_closer", "device",
+                          "pyr_device", "mesh", "_covis_mesh", "loop_hook",
+                          "pt_candidate_hook", "pool_mask_hook"})
+
+
+def _state_leaves(prefix: str, v, out: dict, depth: int = 0):
+    import dataclasses as dc
+
+    import torch
+
+    if depth > 6:
+        out[prefix] = f"<{type(v).__name__}>"
+    elif v is None or isinstance(v, (bool, int, float, str, np.generic)):
+        out[prefix] = v
+    elif isinstance(v, np.ndarray):
+        out[prefix] = v.copy()
+    elif isinstance(v, torch.Tensor):
+        out[prefix] = v.detach().cpu().numpy().copy()
+    elif isinstance(v, torch.Generator):
+        out[prefix] = v.get_state().numpy().copy()
+    elif isinstance(v, (list, tuple)):
+        out[prefix + ".len"] = len(v)
+        for i, x in enumerate(v):
+            _state_leaves(f"{prefix}[{i}]", x, out, depth + 1)
+    elif isinstance(v, dict):
+        out[prefix + ".keys"] = repr(list(v.keys()))
+        for k, x in v.items():
+            _state_leaves(f"{prefix}[{k!r}]", x, out, depth + 1)
+    elif dc.is_dataclass(v) or hasattr(v, "__dict__"):
+        if callable(v) and not dc.is_dataclass(v):
+            return
+        for k, x in vars(v).items():
+            if k not in _STATE_LINKS and not callable(x):
+                _state_leaves(f"{prefix}.{k}", x, out, depth + 1)
+    else:
+        out[prefix] = f"<{type(v).__name__}>"
+
+
+def system_state(slam) -> dict:
+    """Every field of a TextSLAM's map, tracker, text frontend and loop
+    closer (and its frame count) as a flat dict name -> value: arrays and
+    tensors as numpy copies, generators as their state, lists, dicts and
+    records (keyframes, frames, detections) expanded by index or key, with
+    each dict's key order recorded as `<name>.keys`. Links between the
+    owners, the config, devices and hooks are left out."""
+    out = {"frame_count": slam.frame_count}
+    for name in _STATE_OWNERS:
+        obj = slam
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        if obj is not None:
+            _state_leaves(name, obj, out)
+    return out
+
+
+def state_diff(a: dict, b: dict) -> dict:
+    """The fields where two system_state() dicts differ: name -> a short
+    description (only in one, shape, dtype, or the count of differing
+    elements and their largest absolute difference)."""
+    out = {}
+    for k in sorted(set(a) | set(b)):
+        if k not in b or k not in a:
+            out[k] = "only in " + ("the first" if k in a else "the second")
+            continue
+        x, y = a[k], b[k]
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            x, y = np.asarray(x), np.asarray(y)
+            if x.shape != y.shape:
+                out[k] = f"shape {x.shape} vs {y.shape}"
+            elif x.dtype != y.dtype:
+                out[k] = f"dtype {x.dtype} vs {y.dtype}"
+            elif not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+                ne = (x != y) & ~((x != x) & (y != y)) if x.dtype.kind == "f" else x != y
+                with np.errstate(invalid="ignore"):  # inf - inf where a field holds inf
+                    d = (np.abs(x.astype(np.float64) - y.astype(np.float64))[ne].max()
+                         if x.dtype.kind in "fiub" else float("nan"))
+                out[k] = f"{int(ne.sum())} of {x.size} differ, max |diff| {d:.6g}"
+        elif x != y and not (isinstance(x, float) and x != x and y != y):
+            out[k] = f"{x!r} vs {y!r}"
+    return out
+
+
+# fields a checkpoint deliberately does not restore, with the reason; a
+# field name matching one of these patterns is left out of resume_diff
+RESUME_NOT_RESTORED = {
+    r"tracker\.init_frame(\.|$)": "the two-view init's pending first frame, read only before "
+                                  "the map is initialized",
+    r"tracker\.last_frame(\.|$)": "the latest Frame record, written every frame and read by "
+                                  "nothing",
+    r"tracker\.prev_pose$": "overwritten by last_pose before the velocity reads it",
+    r"tracker\.text_frontend\._pool_dev_cache(\.|\[|$)": "a cache of the text pool's device "
+                                                         "copies, keyed by _pool_version",
+    r"tracker\.text_frontend\._pool_version$": "the pool cache's key, bumped on a load",
+    r"tracker\.text_frontend\._klt\.keys$": "the KLT accumulator's key order",
+    r"map\._pyr_lru(\.|\[|$)": "device uploads of evicted keyframes' pyramids, refilled on use",
+    r"map\.keyframes\[\d+\]\.pyr_dev$": "the device copy of a keyframe's host pyramid "
+                                        "(pyr_data), resident again for the last "
+                                        "ba_window + 8 keyframes after a load",
+}
+
+
+def resume_diff(live: dict, resumed: dict) -> dict:
+    """state_diff of two system_state() dicts without the fields a checkpoint
+    deliberately does not restore (RESUME_NOT_RESTORED)."""
+    import re
+
+    skip = [re.compile(p) for p in RESUME_NOT_RESTORED]
+    return {k: v for k, v in state_diff(live, resumed).items()
+            if not any(p.match(k) for p in skip)}

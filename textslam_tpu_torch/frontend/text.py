@@ -578,6 +578,13 @@ def fused_ba_schedule(prob, rows, pair_quads, pair_lm, pair_tgt, pair_host, pair
     return torch.cat([cur.poses.reshape(-1), cur.rho, chi2, cur.theta.reshape(-1)] + gates)
 
 
+# the pyramid levels KLT tracks new text boxes on (klt_track's levels 3..0)
+KLT_LEVELS = 4
+# the KLT accumulator's arrays in a checkpoint: key suffix -> accumulator key
+_KLT_HOST = {"uv_host": "uv_host", "valid": "valid", "det_idx": "det_idx"}
+_KLT_DEV = {"uv_cur": "uv_cur_dev", "valid_cur": "valid_dev"}
+
+
 class TextFrontend:
     """Text objects of one TextSLAM run: creation, per-frame gates and
     maturation, keyframe association, and the windowed BA's text inputs.
@@ -714,12 +721,55 @@ class TextFrontend:
         self._fuse_semantic(tid, det, kid)
         return tid
 
-    def _unpack_pyr(self, dev_pyr, shapes, n_levels: int = 4):
+    def _unpack_pyr(self, dev_pyr, shapes, n_levels: int = KLT_LEVELS):
         imgs = tuple(dev_pyr[lv, : int(shapes[lv][0]), : int(shapes[lv][1]), 0]
                      for lv in range(n_levels))
         grads = tuple(dev_pyr[lv, : int(shapes[lv][0]), : int(shapes[lv][1]), 1:3]
                       for lv in range(n_levels))
         return imgs, grads
+
+    def resume_state(self) -> dict:
+        """The state a resumed run needs beyond the map and the box pools,
+        as numpy arrays by checkpoint key (the JAX package keeps none of
+        it): the text-row count of the latest refinement (it picks the next
+        frame's pose chi2 gate), the maturation budget's cursor, and the KLT
+        accumulator of the latest keyframe's new boxes with the packed
+        pyramid levels its tracks were last advanced on."""
+        out = {"tf_last_text_rows": np.asarray(self.last_text_rows, np.int64),
+               "tf_imm_rr": np.asarray(self._imm_rr, np.int64)}
+        st = self._klt
+        if st is not None:
+            packed, shapes = st["prev_pyr"]
+            out["tf_klt_host_kid"] = np.asarray(st["host_kid"], np.int64)
+            out["tf_klt_last_frame_id"] = np.asarray(st.get("last_frame_id", -1), np.int64)
+            for key, name in _KLT_HOST.items():
+                out[f"tf_klt_{key}"] = st[name]
+            for key, name in _KLT_DEV.items():
+                out[f"tf_klt_{key}"] = st[name].cpu().numpy()
+            out["tf_klt_prev_pyr"] = packed[:KLT_LEVELS].cpu().numpy()
+            out["tf_klt_prev_shapes"] = np.asarray(shapes)[:KLT_LEVELS]
+        return out
+
+    def restore_resume_state(self, z):
+        """resume_state()'s arrays back from a mapping of checkpoint keys (an
+        npz), or afresh where they are missing (a JAX-package checkpoint):
+        count and cursor 0, no tracks of new boxes until the next keyframe."""
+        self.last_text_rows = int(z["tf_last_text_rows"]) if "tf_last_text_rows" in z else 0
+        self._imm_rr = int(z["tf_imm_rr"]) if "tf_imm_rr" in z else 0
+        self._klt = None
+        if "tf_klt_host_kid" not in z:
+            return
+        dev = self.device
+        packed = torch.as_tensor(z["tf_klt_prev_pyr"], dtype=torch.float32, device=dev)
+        st = {"host_kid": int(z["tf_klt_host_kid"]),
+              "prev_pyr": (packed, z["tf_klt_prev_shapes"].copy())}
+        if int(z["tf_klt_last_frame_id"]) >= 0:
+            st["last_frame_id"] = int(z["tf_klt_last_frame_id"])
+        for key, name in _KLT_HOST.items():
+            st[name] = z[f"tf_klt_{key}"].copy()
+        for key, name in _KLT_DEV.items():
+            st[name] = torch.as_tensor(z[f"tf_klt_{key}"], device=dev)
+        self._klt = st
 
     def _theta_from_klt(self, kid: int, quad: np.ndarray):
         """theta from KLT tracks of the box between this KF and its latest
@@ -771,7 +821,8 @@ class TextFrontend:
             return
         F = self.cfg.text.max_features_per_level
         dev = self.device
-        imgs, grads = self._unpack_pyr(m.kf_pyr_dev(kf), kf.pyr_shapes)
+        prev_pyr = (m.kf_pyr_dev(kf), kf.pyr_shapes)
+        imgs, grads = self._unpack_pyr(*prev_pyr)
         D = len(boxes)
         Dp = pad_tier(D, 4)
         quads = np.zeros((Dp, 4, 2), np.float32)
@@ -796,7 +847,9 @@ class TextFrontend:
             "det_idx": det_all,
             "uv_cur_dev": _f32(uv_p, dev),
             "valid_dev": _bool(val_p, dev),
-            "prev_pyr": (imgs, grads),
+            # the packed pyramid of the frame the tracks were last advanced on
+            # and its level shapes (a checkpoint saves it)
+            "prev_pyr": prev_pyr,
         }
 
     def track_new_text(self, frame):
@@ -808,12 +861,13 @@ class TextFrontend:
         if st.get("last_frame_id") == frame.frame_id:
             return  # already advanced for this frame (the chain's retry)
         st["last_frame_id"] = frame.frame_id
-        imgs_j, grads_j = self._unpack_pyr(frame.pyr_dev, frame.pyr_shapes)
-        uv_j, ok = klt.klt_track(st["prev_pyr"][0], st["prev_pyr"][1], imgs_j,
+        imgs_j, _ = self._unpack_pyr(frame.pyr_dev, frame.pyr_shapes)
+        imgs_i, grads_i = self._unpack_pyr(*st["prev_pyr"])
+        uv_j, ok = klt.klt_track(imgs_i, grads_i, imgs_j,
                                  st["uv_cur_dev"], st["valid_dev"], levels=(3, 2, 1, 0))
         st["uv_cur_dev"] = uv_j
         st["valid_dev"] = st["valid_dev"] & ok
-        st["prev_pyr"] = (imgs_j, grads_j)
+        st["prev_pyr"] = (frame.pyr_dev, frame.pyr_shapes)
 
     def create_from_tracks(self, new_kid: int):
         """At KF time, triangulate the accumulated tracks of the previous

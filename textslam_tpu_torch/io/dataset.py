@@ -1,4 +1,5 @@
-"""TextSLAM dataset reader: image lists, PNG frames and precomputed OCR files.
+"""TextSLAM dataset reader: image lists, PNG and JPEG frames and precomputed
+OCR files.
 Port of textslam_tpu/io/dataset.py without OpenCV.
 
 Reference layout contract (src/tool.cc:21-215, main.cpp:46-84):
@@ -12,7 +13,8 @@ Reference layout contract (src/tool.cc:21-215, main.cpp:46-84):
   main.cpp:73); everything downstream is pure pinhole.
 
 Where the work runs: a read-ahead thread reads each frame's file, decodes
-the PNG (io/png.py) and reads its detections on the host; the gray
+it by its signature (PNG: io/png.py; JPEG: io/jpeg.py) and reads its
+detections on the host; the gray
 conversion and the undistortion remap run on `device`, so a frame goes to
 the card as its raw 8- or 16-bit samples and comes back as the float32
 [H, W] tensor the tracker takes. Both reproduce OpenCV's results: the gray
@@ -33,11 +35,22 @@ import torch
 
 from ..config import CameraConfig, TextSLAMConfig
 from ..frontend.frame import TextDetection, check_device
-from . import png
+from . import jpeg, png
 
 # cv2.cvtColor's BGR2GRAY fixed point: (R*9798 + G*19235 + B*3735 + 2^14) >> 15
 GRAY_WEIGHTS = (9798, 19235, 3735)
 LOOKAHEAD = 8  # frames the read-ahead thread decodes past the one asked for
+
+
+def decode_image(data: bytes, name: str) -> np.ndarray:
+    """A frame file's samples, as cv2.imdecode(IMREAD_UNCHANGED) gives them,
+    by the decoder its signature names (PNG or JPEG; not its extension).
+    Raises ValueError for any other file."""
+    if data.startswith(png.SIGNATURE):
+        return png.decode(data, name)
+    if data.startswith(jpeg.SIGNATURE):
+        return jpeg.decode(data, name)
+    raise ValueError(f"{name}: not a PNG or JPEG file (signature {data[:4]!r})")
 
 
 def classify_language(s: str) -> int:
@@ -223,7 +236,7 @@ class Dataset:
                 data = f.read()
         except FileNotFoundError:
             raise FileNotFoundError(f"image not found: {name}") from None
-        img = png.decode(data, path)
+        img = decode_image(data, path)
         dets = ([] if self.cfg.no_text
                 else read_detections(text_stem_for(self.cfg.read_path, name)))
         return img, dets, (time.perf_counter() - t0) * 1e3

@@ -13,6 +13,17 @@ the keys it does not know). Keyframe pyramids are read back from the device
 to be saved; on load the last `ba_window + 8` keyframes' pyramids go back
 to `device`.
 
+Beyond the JAX package's keys, the port saves three pieces of the text
+frontend's state that the JAX package drops, so that a resumed run repeats
+the uninterrupted one: the text-row count of the latest refinement
+(`tf_last_text_rows`, which picks the next frame's pose chi2 gate), the
+maturation budget's round-robin cursor (`tf_imm_rr`) and the KLT
+accumulator of the latest keyframe's new boxes (`tf_klt_*`: its tracks and
+the packed pyramid levels they were last tracked on), as
+TextFrontend.resume_state returns them. A checkpoint without them (the JAX
+package's, or an older one) starts them afresh, as the JAX package's load
+does: no tracks until the next keyframe, cursor and count 0.
+
 Random streams: the port draws its RANSAC sets from torch.Generators, not
 JAX keys. It saves each generator's state (`tf_gen_state` for the text
 frontend's theta RANSAC, `lc_gen_state` for the loop closer's Sim3 RANSAC)
@@ -118,6 +129,7 @@ def save(path: str, slam_map: SlamMap, tracker=None, text_frontend=None,
         blobs["tf_box_int"] = text_frontend.tx_box_int
         blobs["tf_box_valid"] = text_frontend.tx_box_valid
         blobs["tf_host_stats"] = text_frontend.tx_host_stats
+        blobs.update(text_frontend.resume_state())
     owners = {"text_frontend": text_frontend, "loop_closer": loop_closer}
     gen_device = None
     for key, (owner, _) in _GENERATORS.items():
@@ -271,6 +283,7 @@ def load(path: str, cfg, tracker=None, text_frontend=None, loop_closer=None, *,
         text_frontend.tx_host_stats = z["tf_host_stats"].copy()
         text_frontend.map = m
         text_frontend._pool_version += 1  # invalidate the device pool cache
+        text_frontend.restore_resume_state(z)
     saved_device = meta.get("generators", {}).get("device")
     owners = {"text_frontend": text_frontend, "loop_closer": loop_closer}
     for key, (owner, offset) in _GENERATORS.items():

@@ -43,6 +43,10 @@ SIGNATURES: Dict[Tuple[str, str], tuple] = {
     ("patch_sample", "patch_sample_launch"): (_P,) * 5 + (ctypes.c_char_p, _P),
     # host: raw rows (filter byte + bytes), out, rows, stride, bytes per pixel
     ("png_unfilter", "png_unfilter"): (_P, _P, _I, _I, _I),
+    # host: data, size, dims out ({H, W, components}), error message buffer, its size
+    ("jpeg_decode", "jpeg_header"): (_P, ctypes.c_long, _P, ctypes.c_char_p, _I),
+    # host: data, size, out ([H, W] or [H, W, 3] uint8), error message buffer, its size
+    ("jpeg_decode", "jpeg_decode"): (_P, ctypes.c_long, _P, ctypes.c_char_p, _I),
     # host: a, alen, b, blen, Q, T, L, out
     ("native", "levenshtein_batch"): (_P,) * 4 + (ctypes.c_int64,) * 3 + (_P,),
     # host: inc (uint8), K, P, out

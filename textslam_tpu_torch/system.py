@@ -88,9 +88,9 @@ class TextSLAM:
 
     def load_checkpoint(self, path: str) -> dict:
         """Restore from save_checkpoint (or from the JAX package's); returns
-        the stored extra dict. KLT new-text tracks restart at the next
-        keyframe (the accumulator holds device pyramids and is not
-        serialized)."""
+        the stored extra dict. From a JAX-package checkpoint, which does not
+        keep them, the KLT tracks of new text restart at the next keyframe
+        and the text frontend's row count and maturation cursor at 0."""
         from .mapper import checkpoint
 
         self.map, ex = checkpoint.load(path, self.cfg, tracker=self.tracker,
